@@ -1,26 +1,38 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-The main path is program execution: an addressed ``Program`` is
+The first path is program execution: an addressed ``Program`` is
 scheduled into dependency levels, lowered to megakernel tables, and run
 by the ``cuda`` backend per op, level-fused and as one megakernel launch.
+The second is the typed session: ``DramSession()`` builds, validates,
+compile-caches and certifies a program, runs it on the card, and checks
+what came out with the success-rate counter (the mismatch kernel).
 Phases, one JSON line each:
 
 1. build — compile the CUDA kernels of ``src/repro_torch/csrc`` with
    nvcc (all sources at once) and print the card's name and power limit;
 2. kernels — each kernel against its plain PyTorch version on the card,
-   at the shapes the main path gives it, bit-exact, with median times;
+   at the shapes the main paths give it, bit-exact, with median times;
 3. path — the ``add32``, ``maj9_tree`` and ``mrc_fanout31`` golden
    Programs at 2**18 words a row (one DDR4 bank: 128 subarrays of one
    8 KiB rank row), plus the full ``erase_mrc31`` Multi-RowCopy wipe,
    per-op == fused == megakernel == the ``oracle`` backend, and the
    seven golden Programs at their own width against their frozen
-   expected rows.  Every kernel's launch count is zeroed before this
-   phase and must add up to the backend's dispatches after it;
-4. the kernels line, then ``{"ok": true, ...}`` as the last line.
+   expected rows;
+4. session — through ``DramSession()`` at 2**18 words a row: a
+   serve-style TMR heal vote (three replicas of 32 rows with known,
+   disjoint bit flips) in fused and megakernel mode, and the
+   ``erase_mrc31`` wipe built with the session's builder, each checked
+   by ``session.mismatch`` / ``success_rate`` against the known flips;
+   the second run of a program must hit all three compile-cache
+   windows, and a malformed Program must be refused before any launch;
+5. the kernels line, then ``{"ok": true, ...}`` as the last line.
 
+Every kernel's launch count is zeroed just before phases 3 and 4 and
+read just after each: the launches must add up to the backend's
+dispatches, and every kernel of the phase's path must have launched.
 Any failed check raises, so the script exits non-zero and prints no
 result.  It needs ``torch.cuda.is_available()`` and the repository's
 ``src/`` and ``tests/golden/`` beside it.
@@ -28,6 +40,7 @@ result.  It needs ``torch.cuda.is_available()`` and the repository's
 
 from __future__ import annotations
 
+import dataclasses
 import glob
 import json
 import os
@@ -136,11 +149,13 @@ def phase_build(launch) -> str:
 def phase_kernels(torch, timer) -> dict:
     """Each kernel vs its plain version at the main path's shapes."""
     from repro_torch.compile import build_schedule, lower_schedule
+    from repro_torch.core import bitplanes as bp
     from repro_torch.core.bitplanes import from_u32
     from repro_torch.interop import program_from_json
     from repro_torch.kernels.majx import ops as majx_ops
     from repro_torch.kernels.megakernel import ops as mega_ops
     from repro_torch.kernels.megakernel.ref import schedule_exec_ref
+    from repro_torch.kernels.mismatch import ops as mismatch_ops
     from repro_torch.kernels.rowcopy import ops as rowcopy_ops
 
     rng = np.random.default_rng(0)
@@ -152,7 +167,7 @@ def phase_kernels(torch, timer) -> dict:
     rows = {}
 
     def record(name, key, kernel_fn, plain_fn, n_bytes, n_ops, shape,
-               library_fn=None):
+               library_fn=None, reps=15):
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         err = max_abs_err(torch, got, want)
@@ -160,7 +175,8 @@ def phase_kernels(torch, timer) -> dict:
               f"{key}: kernel disagrees with its plain version")
         b_ms, b_by = bound(n_bytes, n_ops)
         row = {"name": name, "shape": shape, "max_abs_err": err,
-               "ms": timer(kernel_fn), "plain_ms": timer(plain_fn, reps=5),
+               "ms": timer(kernel_fn, reps=reps),
+               "plain_ms": timer(plain_fn, reps=min(reps, 5)),
                "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": timer(library_fn) if library_fn else None}
         emit({"phase": "kernels", "case": key, **row})
@@ -196,6 +212,37 @@ def phase_kernels(torch, timer) -> dict:
            2 * (doc["rows"] + 3) * WORDS * 4,
            live * WORDS * (vote_ops(low.x_max) + 1),
            [low.n_levels, low.w_max, low.x_max, doc["rows"], WORDS])
+
+    # Mismatch: two add32 images at full width (the success-rate check
+    # of a whole run's output), then two exact cases: a known number of
+    # set bits, and 2**31 differing bits, where the int32 count wraps.
+    n = doc["rows"] * WORDS
+    got, want = words(n), words(n)
+    record("mismatch", "mismatch[add32 image]",
+           lambda: mismatch_ops.mismatch_count(got, want),
+           lambda: mismatch_ops.mismatch_count_ref(got, want),
+           2 * n * 4, 3 * n, [doc["rows"], WORDS])
+    pos = np.unique(rng.integers(0, n * 32, 1_000_003))
+    flips = np.zeros(n, np.uint32)
+    np.bitwise_or.at(flips, pos // 32,
+                     (np.uint32(1) << (pos % 32)).astype(np.uint32))
+    got, want = torch.zeros_like(want), from_u32(flips, "cuda")
+    record("mismatch", "mismatch[exact]",
+           lambda: mismatch_ops.mismatch_count(got, want),
+           lambda: mismatch_ops.mismatch_count_ref(got, want),
+           2 * n * 4, 3 * n, [doc["rows"], WORDS], reps=3)
+    check(int(mismatch_ops.mismatch_count(got, want)) == len(pos),
+          f"mismatch[exact]: want {len(pos)} differing bits")
+    del got, want, flips
+    zeros = torch.zeros(2**26, dtype=torch.int32, device="cuda")
+    ones = torch.full_like(zeros, -1)
+    record("mismatch", "mismatch[wrap]",
+           lambda: mismatch_ops.mismatch_count(ones, zeros),
+           lambda: mismatch_ops.mismatch_count_ref(ones, zeros),
+           2 * 2**26 * 4, 3 * 2**26, [2**26], reps=3)
+    wrapped = int(bp.wrap_i32(torch.tensor(2**31, dtype=torch.int64)))
+    check(int(mismatch_ops.mismatch_count(ones, zeros)) == wrapped
+          == -2**31, "mismatch[wrap]: 2**31 bits must wrap to -2**31")
     return rows
 
 
@@ -251,6 +298,26 @@ def erase_mrc31(waves: int = 64, fanout: int = 31, words: int = 2048):
     return prog, state
 
 
+def zero_launches(kernel_mods) -> None:
+    for mod in kernel_mods.values():
+        mod.launches = 0
+
+
+def read_launches(kernel_mods, path_kernels, dispatches: int,
+                  phase: str) -> dict:
+    """Each kernel's launches since :func:`zero_launches`; they must add
+    up to the backend's ``dispatches``, and every kernel in
+    ``path_kernels`` must have launched."""
+    launches = {n: m.launches for n, m in kernel_mods.items()}
+    check(sum(launches.values()) == dispatches,
+          f"{phase}: kernel launches {launches} != backend dispatches "
+          f"{dispatches}")
+    check(all(launches[n] > 0 for n in path_kernels),
+          f"{phase}: a kernel of the path was never launched: {launches}")
+    emit({"phase": phase, "launches": launches, "dispatches": dispatches})
+    return launches
+
+
 def phase_path(torch, kernel_mods) -> dict:
     """The main path at full width; returns each kernel's launches."""
     from repro_torch.backends import ExecutionContext, get_backend
@@ -269,8 +336,7 @@ def phase_path(torch, kernel_mods) -> dict:
         workloads.append((name, prog, state))
     workloads.append(("erase_mrc31", *erase_mrc31()))
 
-    for mod in kernel_mods.values():
-        mod.launches = 0
+    zero_launches(kernel_mods)
     start = cuda.dispatch_count
     for name, prog, state in workloads:
         sched = build_schedule(prog)
@@ -326,14 +392,202 @@ def phase_path(torch, kernel_mods) -> dict:
                   f"golden {doc['name']}/{mode} != expected")
     emit({"phase": "path", "goldens": "7 replayed x 3 modes, bit-exact"})
 
-    launches = {n: m.launches for n, m in kernel_mods.items()}
-    dispatches = cuda.dispatch_count - start
-    check(sum(launches.values()) == dispatches,
-          f"kernel launches {launches} != backend dispatches {dispatches}")
-    check(all(v > 0 for v in launches.values()),
-          f"a kernel of the path was never launched: {launches}")
-    emit({"phase": "path", "launches": launches, "dispatches": dispatches})
-    return launches
+    return read_launches(kernel_mods, ("majx", "fanout", "megakernel"),
+                         cuda.dispatch_count - start, "path")
+
+
+def new_session(name: str):
+    """A ``DramSession`` on the card — the user's default — or, for a
+    rehearsal with ``DEVICE`` set to ``"cpu"``, on the CPU."""
+    from repro_torch.backends import ExecutionContext
+    from repro_torch.session import DramSession
+
+    if DEVICE == "cuda":
+        return DramSession(name=name)
+    return DramSession("cuda", ExecutionContext(device=DEVICE), name=name)
+
+
+def flip_bits(words: np.ndarray, pos: np.ndarray) -> np.ndarray:
+    """A copy of ``words`` with the distinct flat bit positions ``pos``
+    flipped."""
+    out = words.copy()
+    np.bitwise_xor.at(out.reshape(-1), pos // 32,
+                      (np.uint32(1) << (pos % 32)).astype(np.uint32))
+    return out
+
+
+def timed_runs(torch, sess, prog, state, modes=("fused", "megakernel")):
+    """Run ``prog`` twice per mode through the session; returns the
+    outputs, the dispatches of each mode and the host wall of each run
+    (the first pays scheduling, lowering, certification, table upload
+    and the image upload; the warm one hits every cache)."""
+    outs, counts, secs = {}, {}, {}
+    for mode in modes:
+        for run in ("first", "warm"):
+            before = tuple(dataclasses.replace(w) for w in (
+                sess.cache.stats, sess.cache.lowering_stats,
+                sess.cache.certificate_stats))
+            t0 = time.perf_counter()
+            with sess.count_dispatches() as scope:
+                out = sess.run_fused(prog, state, mode=mode)
+            if DEVICE == "cuda":
+                torch.cuda.synchronize()
+            secs[f"{mode}/{run}"] = time.perf_counter() - t0
+            check(counts.setdefault(mode, scope.count) == scope.count,
+                  f"{mode}: dispatches differ between runs")
+            if run == "first":
+                outs[mode] = out
+                continue
+            check(torch.equal(out, outs[mode]), f"{mode}: runs differ")
+            after = (sess.cache.stats, sess.cache.lowering_stats,
+                     sess.cache.certificate_stats)
+            deltas = [(a.hits - b.hits, a.misses - b.misses)
+                      for a, b in zip(after, before)]
+            want = [(1, 0), (1 if mode == "megakernel" else 0, 0), (1, 0)]
+            check(deltas == want, f"{mode}: warm run's cache deltas "
+                  f"(schedule, lowering, certificate) {deltas} != {want}")
+    return outs, counts, secs
+
+
+def certify_seconds(prog) -> float:
+    """Host wall of one fresh certification (races, liveness, symbolic
+    equivalence) of ``prog`` with its schedule and lowering."""
+    from repro_torch.analyze import certify
+    from repro_torch.compile import build_schedule, lower_schedule
+
+    sched = build_schedule(prog)
+    low = lower_schedule(sched)
+    t0 = time.perf_counter()
+    certify(prog, sched=sched, lowering=low)
+    return time.perf_counter() - t0
+
+
+def phase_session(torch, kernel_mods) -> dict:
+    """The typed session path at full width; returns each kernel's
+    launches."""
+    from repro_torch.backends import get_backend
+    from repro_torch.core import calibration as cal
+    from repro_torch.core.bitplanes import from_u32
+    from repro_torch.interop import program_from_json
+    from repro_torch.pud.isa import Program
+    from repro_torch.session import ProgramValidationError
+
+    sess = new_session("smoke")
+    check(sess.backend.name == "cuda" and sess.ctx.certify,
+          "DramSession() must resolve the certified cuda backend")
+    oracle = get_backend("oracle", sess.ctx)
+    rng = np.random.default_rng(1)
+    zero_launches(kernel_mods)
+    start = sess.dispatch_count
+
+    # Heal: a TMR vote over three replicas of 32 rows, as serve's heal
+    # batch builds it, each replica with its own known bit flips at
+    # positions no other replica flips.
+    t0 = time.perf_counter()
+    rows, x = 32, 3
+    clean = rng.integers(0, 2**32, (rows, WORDS), dtype=np.uint32)
+    n_bits = rows * WORDS * 32
+    sizes = (1000, 1017, 1034)
+    flips = np.split(rng.choice(n_bits, sum(sizes), replace=False),
+                     np.cumsum(sizes)[:-1])
+    reps = [flip_bits(clean, f) for f in flips]
+    b = sess.program(rows=(x + 1) * rows, name="smoke/heal-x3")
+    groups = [b.input(r, tag=f"heal/replica[{j}]")
+              for j, r in enumerate(reps)]
+    voted = b.alloc_rows(rows, tag="heal/voted")
+    n_act = cal.min_activation_for(32)
+    for r in range(rows):
+        b.maj(*(g[r] for g in groups), dst=voted[r], n_act=n_act,
+              tag=f"heal/row[{r}]")
+    prog = b.build()
+    state = b.initial_state()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    from_u32(state, DEVICE)
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    outs, counts, secs = timed_runs(torch, sess, prog, state)
+    want = oracle.run(prog, state)
+    check(all(torch.equal(o, want) for o in outs.values()),
+          "heal: fused / megakernel disagree with the oracle")
+    tile = outs["megakernel"][list(voted.indices)]
+    check(torch.equal(tile, from_u32(clean, DEVICE)),
+          "heal: the voted rows are not the clean rows")
+    replica0 = from_u32(reps[0], DEVICE)
+    t0 = time.perf_counter()
+    fixed = int(sess.mismatch(replica0, tile))
+    mismatch_s = time.perf_counter() - t0
+    rate = sess.success_rate(replica0, tile)
+    check(fixed == len(flips[0]),
+          f"heal: mismatch {fixed} != {len(flips[0])} flipped bits")
+    check(rate == 1.0 - len(flips[0]) / n_bits,
+          f"heal: success rate {rate}")
+    check(counts == {"fused": 1, "megakernel": 1},
+          f"heal: dispatches {counts}, want one MAJX level / one launch")
+    emit({"phase": "session", "workload": "heal", "shape": list(
+        state.shape), "image_mib": state.nbytes / 2**20,
+        "dispatches": counts, "host_s": secs, "build_s": build_s,
+        "upload_s": upload_s,
+        "certify_s": certify_seconds(prog), "mismatch_bits": fixed,
+        "mismatch_host_s": mismatch_s, "success_rate": rate})
+
+    # Erase: erase_mrc31's 64 waves of 31 rows from one pattern row,
+    # built through the session's builder.
+    waves, fanout, width = 64, 31, 2048
+    b = sess.program(rows=waves * fanout + 1, name="smoke/erase-f31")
+    src = b.input(np.full(width, 0xDEADBEEF, np.uint32),
+                  tag="erase/pattern")
+    dsts = b.alloc_rows(waves * fanout, tag="erase/wiped")
+    for lo in range(0, waves * fanout, fanout):
+        b.mrc(src, dsts[lo:lo + fanout], tag=f"erase/wave[{lo // fanout}]")
+    prog = b.build()
+    state = b.initial_state()
+    outs, counts, secs = timed_runs(torch, sess, prog, state)
+    want = oracle.run(prog, state)
+    check(all(torch.equal(o, want) for o in outs.values()),
+          "erase: fused / megakernel disagree with the oracle")
+    wiped = outs["megakernel"][list(dsts.indices)]
+    pattern = outs["megakernel"][src.index].expand_as(wiped).contiguous()
+    check(int(sess.mismatch(wiped, pattern)) == 0,
+          "erase: the wiped rows differ from the pattern")
+    j_pos = rng.choice(wiped.numel() * 32, 777, replace=False)
+    flipped = from_u32(flip_bits(np.zeros(tuple(wiped.shape), np.uint32),
+                                 j_pos), DEVICE) ^ wiped
+    bad = int(sess.mismatch(flipped, pattern))
+    check(bad == len(j_pos), f"erase: mismatch {bad} != {len(j_pos)}")
+    check(counts == {"fused": 1, "megakernel": 1},
+          f"erase: dispatches {counts}, want one fan-out / one launch")
+    emit({"phase": "session", "workload": "erase_mrc31",
+          "shape": list(state.shape), "dispatches": counts,
+          "host_s": secs, "certify_s": certify_seconds(prog),
+          "mismatch_bits": bad})
+
+    # Certification of the largest golden program, for scale.
+    add32 = program_from_json(json.dumps(load_golden("add32")["ops"]))
+    emit({"phase": "session", "workload": "add32",
+          "certify_s": certify_seconds(add32)})
+
+    # Validation before launch: a hand-built Program with a row outside
+    # the image is refused, and nothing is dispatched.
+    bad_prog = Program()
+    bad_prog.emit("MAJ", x=3, n_act=4, tag="smoke/far",
+                  srcs=(0, 1, 999), dsts=(2,))
+    small = from_u32(np.zeros((4, WORDS), np.uint32), DEVICE)
+    before = sess.dispatch_count
+    for mode in ("fused", "megakernel"):
+        try:
+            sess.run_fused(bad_prog, small, mode=mode)
+        except ProgramValidationError as err:
+            check("999" in str(err), f"validation message: {err}")
+        else:
+            raise AssertionError("an out-of-range row was not refused")
+    check(sess.dispatch_count == before,
+          "a refused program dispatched kernels")
+    emit({"phase": "session", "validation": "out-of-range row refused "
+          "before any launch"})
+    return read_launches(kernel_mods, tuple(kernel_mods),
+                         sess.dispatch_count - start, "session")
 
 
 def main() -> int:
@@ -346,31 +600,38 @@ def main() -> int:
     from repro_torch.kernels import launch
     from repro_torch.kernels.majx import ops as majx_ops
     from repro_torch.kernels.megakernel import ops as mega_ops
+    from repro_torch.kernels.mismatch import ops as mismatch_ops
     from repro_torch.kernels.rowcopy import ops as rowcopy_ops
 
     kernel_mods = {"majx": majx_ops, "fanout": rowcopy_ops,
-                   "megakernel": mega_ops}
+                   "megakernel": mega_ops, "mismatch": mismatch_ops}
 
     smi = phase_build(launch)
     timer = Timer(torch)
     rows = phase_kernels(torch, timer)
     phase_launch_overhead(torch)
-    launches = phase_path(torch, kernel_mods)
+    path = phase_path(torch, kernel_mods)
+    session = phase_session(torch, kernel_mods)
 
     replaces = {
         "majx": "src/repro/kernels/majx/kernel.py:74",
         "fanout": "src/repro/kernels/rowcopy/kernel.py:27",
         "megakernel": "src/repro/kernels/megakernel/kernel.py:65",
+        "mismatch": "src/repro/kernels/mismatch/kernel.py:38",
     }
     main_case = {"majx": "majx[maj9_tree level]", "fanout": "fanout[31]",
-                 "megakernel": "megakernel[add32]"}
+                 "megakernel": "megakernel[add32]",
+                 "mismatch": "mismatch[add32 image]"}
     kernels = []
     for name, key in main_case.items():
         row = rows[key]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
-            "replaces": replaces[name], "launches": launches[name],
+            "replaces": replaces[name],
+            "launches": path[name] + session[name],
+            "launches_by_path": {"path": path[name],
+                                 "session": session[name]},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

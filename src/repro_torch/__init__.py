@@ -3,9 +3,12 @@
 A second package beside the JAX reference (``repro``), with the same
 layout and names: ``core`` (calibration, bit-planes, cost model),
 ``pud`` (the PUD instruction stream), ``compile`` (fusion scheduler and
-megakernel lowering), ``backends`` (``oracle`` and ``cuda`` executors)
-and ``kernels`` (hand-written CUDA kernels for Hopper, in ``csrc/``, each
-with its plain PyTorch version).  It imports neither JAX nor the
+megakernel lowering), ``backends`` (``oracle`` and ``cuda`` executors),
+``kernels`` (hand-written CUDA kernels for Hopper, in ``csrc/``, each
+with its plain PyTorch version), ``analyze`` (race, liveness and
+equivalence certification of compiled programs) and ``session``
+(``DramSession``: typed, validated, compile-cached and certified
+execution).  It imports neither JAX nor the
 reference package; :mod:`repro_torch.interop` carries the reference's
 artefacts across as numpy arrays and JSON.
 

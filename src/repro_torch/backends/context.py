@@ -59,8 +59,9 @@ class ExecutionContext:
 
     Execution knobs:
 
-    * ``certify`` — run the static analyzer over every fused artifact a
-      session executes (the session layer is a later slice of the port),
+    * ``certify`` — run the static analyzer (:mod:`repro_torch.analyze`)
+      over every fused artifact a :class:`~repro_torch.session.
+      DramSession` executes,
     * ``device`` — where state tensors live and kernels run: ``"cuda"``
       (the default: the port runs on the card) or ``"cpu"``, where every
       kernel wrapper computes with its plain PyTorch version,

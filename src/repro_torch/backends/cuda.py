@@ -1,7 +1,8 @@
 """``cuda``: the hand-written CUDA kernel backend.
 
 Launches the kernels of :mod:`repro_torch.kernels` (bit-sliced CSA MAJX,
-fan-out Multi-RowCopy, the whole-schedule megakernel) on state tensors
+fan-out Multi-RowCopy, the whole-schedule megakernel, the mismatch
+count behind :meth:`success_rate`) on state tensors
 that live on ``ctx.device`` — the card by default.  With
 ``ExecutionContext(device="cpu")`` every wrapper computes with its plain
 PyTorch version instead, which is how the tests run it without a card;
@@ -18,8 +19,8 @@ executes end-to-end.  ``self.dispatch_count`` counts launches, and each
 accrues :data:`repro_torch.core.costmodel.COST`-priced energy (launch
 round-trip at board power + device-memory traffic).
 
-The mismatch and bit-serial-add kernels are not ported yet:
-:meth:`mismatch` and :meth:`add_planes` raise until they are.
+The bit-serial-add kernel is not ported yet: :meth:`add_planes`
+raises until it is.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from repro_torch.core import calibration as cal
 from repro_torch.core.costmodel import COST
 from repro_torch.kernels.majx import ops as majx_ops
 from repro_torch.kernels.megakernel import ops as mega_ops
+from repro_torch.kernels.mismatch import ops as mismatch_ops
 from repro_torch.kernels.rowcopy import ops as rowcopy_ops
 from repro_torch.pud.isa import Program
 
@@ -54,7 +56,8 @@ class CudaBackend(Backend):
         return Capabilities(
             name=self.name,
             description="hand-written CUDA kernels for Hopper (CSA "
-                        "bit-sliced MAJX, fan-out MRC, megakernel)",
+                        "bit-sliced MAJX, fan-out MRC, megakernel, "
+                        "mismatch count)",
             stochastic=False,
             device_model=False,
             accelerated=True,
@@ -95,9 +98,14 @@ class CudaBackend(Backend):
                                   threads=self.ctx.threads_per_block)
 
     def mismatch(self, a, b) -> torch.Tensor:
-        raise NotImplementedError(
-            "cuda backend: the mismatch kernel is not ported yet "
-            "(ROADMAP.md, queue 2 item 4: mismatch_pallas)")
+        """Differing bits of ``a`` and ``b`` in ONE kernel launch: a 0-d
+        int32 tensor that wraps past 2**31 as the reference's does."""
+        a, b = self.words(a), self.words(b)
+        count = mismatch_ops.mismatch_count(   # raises before a launch
+            a.contiguous(), b.contiguous(),    # on unequal sizes
+            threads=self.ctx.threads_per_block)
+        self._launch((a.numel() + b.numel()) * 4)
+        return count
 
     def add_planes(self, a, b) -> torch.Tensor:
         raise NotImplementedError(

@@ -1,1 +1,3 @@
-"""Mismatch count: plain PyTorch version (the kernel is still to port)."""
+"""Mismatch count (the success-rate counter): ``ops.mismatch_count``
+launches ``csrc/mismatch.cu``; ``ref.mismatch_count_ref`` is the plain
+PyTorch version."""

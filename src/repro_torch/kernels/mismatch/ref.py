@@ -1,7 +1,8 @@
 """Plain PyTorch version of the mismatch-count (success-rate) kernel.
 
-The reference's ``src/repro/kernels/mismatch/kernel.py`` (mismatch_pallas)
-is still to port; the ``oracle`` backend computes with this version.
+The ``oracle`` backend computes with it, the ``mismatch`` wrapper uses
+it on CPU tensors, and ``chip_smoke.py`` holds ``csrc/mismatch.cu``
+against it on the card.
 """
 
 from __future__ import annotations

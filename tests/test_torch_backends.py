@@ -147,11 +147,17 @@ def test_unported_kernels_raise():
     be = get_backend("cuda", CPU)
     a = np.zeros((2, 4), np.uint32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        be.mismatch(a, a)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         be.add_planes(a, a)
-    with pytest.raises(NotImplementedError):
-        be.success_rate(a, a)
+    assert be.dispatch_count == 0
+    # The mismatch kernel is ported: one dispatch, the oracle's count.
+    b = a.copy()
+    b[1, 3] = 0x80000001
+    assert int(be.mismatch(a, b)) == 2 and be.dispatch_count == 1
+    assert be.success_rate(a, b) == get_backend(
+        "oracle", CPU).success_rate(a, b) == 1 - 2 / 256
+    with pytest.raises(ValueError, match="must be equal"):
+        be.mismatch(a, b[:1])
+    assert be.dispatch_count == 2
 
 
 def test_oracle_mismatch_and_adder_match_reference():

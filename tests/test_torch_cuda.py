@@ -27,8 +27,10 @@ from repro_torch.core import bitplanes as bp
 from repro_torch.kernels.majx import ops as majx_ops
 from repro_torch.kernels.megakernel import ops as mega_ops
 from repro_torch.kernels.megakernel.ref import schedule_exec_ref
+from repro_torch.kernels.mismatch import ops as mismatch_ops
 from repro_torch.kernels.rowcopy import ops as rowcopy_ops
 from repro_torch.pud.isa import Program
+from repro_torch.session import DramSession
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 
@@ -149,3 +151,78 @@ def test_cuda_backend_modes_agree_with_oracle(cuda_device):
         assert scope.count == (sched.per_op_dispatches()
                                + sched.n_dispatches()
                                + (1 if sched.n_levels else 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(0,), (1,), (511,), (512,), (513,),
+                                   (4099,), (3, 4099), (2**22,)], ids=str)
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+def test_mismatch_kernel_matches_plain(cuda_device, shape, offset):
+    """Bit-exact count; ``offset`` 1 starts both operands one word into
+    their storage, which takes the kernel's single-word path."""
+    n = int(np.prod(shape))
+    got = _words(n, n + offset, device=cuda_device)[offset:].view(shape)
+    want = _words(n + 1, n + offset, device=cuda_device)[offset:].view(shape)
+    if n:
+        want.view(-1)[::5] = got.view(-1)[::5]
+    before = mismatch_ops.launches
+    count = mismatch_ops.mismatch_count(got, want)
+    assert mismatch_ops.launches == before + 1
+    assert count.dtype == torch.int32 and count.device == got.device
+    assert int(count) == int(mismatch_ops.mismatch_count_ref(got.cpu(),
+                                                             want.cpu()))
+    assert int(mismatch_ops.mismatch_count(got, got)) == 0
+
+
+@pytest.mark.cuda
+def test_mismatch_kernel_counts_known_flips(cuda_device):
+    rng = np.random.default_rng(3)
+    n = 100_003
+    pos = rng.choice(n * 32, size=4321, replace=False)
+    want = np.zeros(n, np.uint32)
+    np.bitwise_or.at(want, pos // 32, (np.uint32(1) << (pos % 32)
+                                       ).astype(np.uint32))
+    got = torch.zeros(n, dtype=torch.int32, device=cuda_device)
+    assert int(mismatch_ops.mismatch_count(
+        got, bp.from_u32(want, cuda_device))) == 4321
+
+
+@pytest.mark.cuda
+def test_cuda_success_rate_matches_oracle(cuda_device):
+    ctx = ExecutionContext(device="cuda")
+    cuda, oracle = get_backend("cuda", ctx), get_backend("oracle", ctx)
+    got = _words(5, 7, 3001, device=cuda_device)
+    want = got.clone()
+    want[2:4] = _words(6, 2, 3001, device=cuda_device)
+    with cuda.count_dispatches() as scope:
+        rate = cuda.success_rate(got, want)
+    assert scope.count == 1
+    assert rate == oracle.success_rate(got, want) < 1.0
+    assert cuda.success_rate(got, want, n_bits=10**7) == \
+        oracle.success_rate(got, want, n_bits=10**7)
+
+
+@pytest.mark.cuda
+def test_session_heal_agrees_across_modes_and_oracle(cuda_device):
+    rng = np.random.default_rng(11)
+    clean = rng.integers(0, 2**32, (8, 5000), dtype=np.uint32)
+    reps = [clean.copy() for _ in range(3)]
+    for j, rep in enumerate(reps):
+        rep[j, 100 * j:100 * j + 7] ^= np.uint32(1 << j)
+    sess = DramSession()
+    b = sess.program(rows=32, name="heal")
+    groups = [b.input(r) for r in reps]
+    voted = b.alloc_rows(8)
+    for r in range(8):
+        b.maj(*(g[r] for g in groups), dst=voted[r], n_act=32)
+    prog, state = b.build(), b.initial_state()
+    want = get_backend("oracle", ExecutionContext(device="cuda")).run(
+        prog, state)
+    fused = sess.run_fused(prog, state)
+    mega = sess.run_fused(prog, state, mode="megakernel")
+    assert fused.device.type == "cuda"
+    assert torch.equal(fused, want) and torch.equal(mega, want)
+    tile = mega[list(voted.indices)]
+    assert torch.equal(tile.cpu(), bp.from_u32(clean, "cpu"))
+    assert int(sess.mismatch(reps[0], tile)) == 7
+    assert sess.success_rate(reps[0], tile) == 1 - 7 / (8 * 5000 * 32)

@@ -19,12 +19,14 @@ from repro.compile import lower_schedule as ref_lower_schedule
 from repro.kernels.majx import ops as ref_majx
 from repro.kernels.megakernel import ops as ref_mega
 from repro.kernels.megakernel.ref import schedule_exec_ref as ref_exec
+from repro.kernels.mismatch import ops as ref_mismatch
 from repro.kernels.rowcopy import ops as ref_rowcopy
 from repro_torch import interop
 from repro_torch.core import bitplanes as bp
 from repro_torch.kernels.majx import ops as majx_ops
 from repro_torch.kernels.megakernel import ops as mega_ops
 from repro_torch.kernels.megakernel.ref import schedule_exec_ref
+from repro_torch.kernels.mismatch import ops as mismatch_ops
 from repro_torch.kernels.rowcopy import ops as rowcopy_ops
 from test_compile_differential import rand_program
 
@@ -130,3 +132,79 @@ def test_run_lowering_identity_and_row_check():
                                        big.n_rows, big.level_meta)
     with pytest.raises(ValueError, match="rows"):
         mega_ops.run_lowering(low, state[:1])
+
+
+# ------------------------------------------------------------ mismatch
+
+
+def _mismatch_pair(shape, kind):
+    rng = np.random.default_rng(sum(shape) + len(kind))
+    got = rand_u32(rng, *shape)
+    if kind == "equal":
+        return got, got.copy()
+    want = rand_u32(rng, *shape)
+    if kind == "sign" and got.size:
+        got.reshape(-1)[::3] = 0x80000000
+        want.reshape(-1)[::3] = 0x7FFFFFFF
+    return got, want
+
+
+@pytest.mark.parametrize("kind", ["random", "sign", "equal"])
+@pytest.mark.parametrize("shape", [(1,), (511,), (512,), (513,), (4099,),
+                                   (3, 4099)], ids=str)
+def test_mismatch_matches_pallas(shape, kind):
+    got, want = _mismatch_pair(shape, kind)
+    count = mismatch_ops.mismatch_count(_t(got), _t(want))
+    ref = ref_mismatch.mismatch_count(jnp.asarray(got), jnp.asarray(want))
+    assert count.dtype == torch.int32 and count.dim() == 0
+    assert int(count) == int(ref)
+    assert int(count) == int(ref_mismatch.mismatch_count_ref(
+        jnp.asarray(got), jnp.asarray(want)))
+    assert mismatch_ops.success_rate(_t(got), _t(want)) == \
+        ref_mismatch.success_rate(jnp.asarray(got), jnp.asarray(want))
+    if kind == "equal":
+        assert int(count) == 0
+    assert mismatch_ops.launches == 0  # the CPU route launches nothing
+
+
+def test_mismatch_zero_words():
+    """Zero words count 0, as the reference's plain version gives; the
+    reference's Pallas wrapper cannot take them (it raises), which is
+    recorded in ROADMAP.md's queue of reference faults."""
+    empty = np.zeros(0, np.uint32)
+    count = mismatch_ops.mismatch_count(_t(empty), _t(empty))
+    assert int(count) == int(ref_mismatch.mismatch_count_ref(
+        jnp.asarray(empty), jnp.asarray(empty))) == 0
+    with pytest.raises(TypeError):
+        ref_mismatch.mismatch_count(jnp.asarray(empty), jnp.asarray(empty))
+
+
+@pytest.mark.parametrize("n_got,n_want", [(600, 1000), (100, 5000),
+                                          (5000, 100)])
+def test_mismatch_refuses_unequal_sizes(n_got, n_want):
+    """The reference pads each operand to rows of 512 words on its own
+    and walks the grid of ``got``: with unequal sizes its count depends
+    on which operand is longer and by how much (it is neither the count
+    over the common words nor over the zero-padded shorter operand in
+    every case).  The port raises instead."""
+    rng = np.random.default_rng(n_got)
+    got, want = rand_u32(rng, n_got), rand_u32(rng, n_want)
+    with pytest.raises(ValueError, match="must be equal"):
+        mismatch_ops.mismatch_count(_t(got), _t(want))
+    n = max(n_got, n_want)
+    pad_g, pad_w = np.zeros(n, np.uint32), np.zeros(n, np.uint32)
+    pad_g[:n_got], pad_w[:n_want] = got, want
+    zero_padded = int(np.unpackbits((pad_g ^ pad_w).view(np.uint8)).sum())
+    ref = int(ref_mismatch.mismatch_count(jnp.asarray(got),
+                                          jnp.asarray(want)))
+    assert (ref == zero_padded) == (n_got == 600)
+
+
+def test_mismatch_rejects_what_the_kernel_does_not_take():
+    a = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(TypeError, match="int32"):
+        mismatch_ops.mismatch_count(a, a.to(torch.int64))
+    with pytest.raises(ValueError, match="contiguous"):
+        mismatch_ops.mismatch_count(a.view(2, 4).t(), a.view(2, 4).t())
+    with pytest.raises(ValueError, match="operands on"):
+        mismatch_ops.mismatch_count(a, a.to("meta"))
