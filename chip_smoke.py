@@ -8,7 +8,10 @@ scheduled into dependency levels, lowered to megakernel tables, and run
 by the ``cuda`` backend per op, level-fused and as one megakernel launch.
 The second is the typed session: ``DramSession()`` builds, validates,
 compile-caches and certifies a program, runs it on the card, and checks
-what came out with the success-rate counter (the mismatch kernel).
+what came out with the success-rate counter (the mismatch kernel).  The
+third is §8.1 arithmetic: ``DramSession().elementwise`` traces a
+bit-serial gate stream into a Program and runs it fused (or as one
+megakernel launch), and ``add_planes`` runs the bulk bit-serial adder.
 Phases, one JSON line each:
 
 1. build — compile the CUDA kernels of ``src/repro_torch/csrc`` with
@@ -28,9 +31,15 @@ Phases, one JSON line each:
    by ``session.mismatch`` / ``success_rate`` against the known flips;
    the second run of a program must hit all three compile-cache
    windows, and a malformed Program must be refused before any launch;
-5. the kernels line, then ``{"ok": true, ...}`` as the last line.
+5. arith — through ``DramSession()``: add, sub and mul at 2**18 words a
+   plane (2**23 lanes) fused and as a megakernel, exact against numpy,
+   with the trace, upload and warm wall times and the offload planner's
+   verdict; all seven ops at tiers 3/5/7/9 at 2048 words (one 8 KiB
+   rank row); ``add_planes`` at full width; the add8/16/32 goldens
+   re-traced; then ``add_u32`` at 2**23 elements;
+6. the kernels line, then ``{"ok": true, ...}`` as the last line.
 
-Every kernel's launch count is zeroed just before phases 3 and 4 and
+Every kernel's launch count is zeroed just before phases 3, 4 and 5 and
 read just after each: the launches must add up to the backend's
 dispatches, and every kernel of the phase's path must have launched.
 Any failed check raises, so the script exits non-zero and prints no
@@ -53,6 +62,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORDS = 2**18            # 128 subarrays x 2048 words (8 KiB rank row)
+RANK_WORDS = 2048        # one 8 KiB rank row
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 #: The guide's table lists no int32 logic rate; its float32 rate outside
@@ -152,6 +162,7 @@ def phase_kernels(torch, timer) -> dict:
     from repro_torch.core import bitplanes as bp
     from repro_torch.core.bitplanes import from_u32
     from repro_torch.interop import program_from_json
+    from repro_torch.kernels.bitserial import ops as bitserial_ops
     from repro_torch.kernels.majx import ops as majx_ops
     from repro_torch.kernels.megakernel import ops as mega_ops
     from repro_torch.kernels.megakernel.ref import schedule_exec_ref
@@ -243,6 +254,20 @@ def phase_kernels(torch, timer) -> dict:
     wrapped = int(bp.wrap_i32(torch.tensor(2**31, dtype=torch.int64)))
     check(int(mismatch_ops.mismatch_count(ones, zeros)) == wrapped
           == -2**31, "mismatch[wrap]: 2**31 bits must wrap to -2**31")
+    del zeros, ones
+
+    # Bit-serial add: two 32-bit operands over one bank (add_planes'
+    # (NBITS, R, C) layout), an odd word count (the single-word path) and
+    # 33 planes (a ragged last group of planes).  Six logic ops a word a
+    # plane (two XOR for the sum, four for the majority carry).
+    for key, shape in (("bitserial[bank]", (32, 128, RANK_WORDS)),
+                       ("bitserial[odd words]", (32, WORDS + 3)),
+                       ("bitserial[nbits 33]", (33, 128, RANK_WORDS))):
+        a, b = words(*shape), words(*shape)
+        n = a.numel()
+        record("bitserial", key, lambda a=a, b=b: bitserial_ops.bitserial_add(
+            a, b), lambda a=a, b=b: bitserial_ops.bitserial_add_ref(a, b),
+            3 * n * 4, 6 * n, list(shape))
     return rows
 
 
@@ -586,8 +611,248 @@ def phase_session(torch, kernel_mods) -> dict:
           "a refused program dispatched kernels")
     emit({"phase": "session", "validation": "out-of-range row refused "
           "before any launch"})
-    return read_launches(kernel_mods, tuple(kernel_mods),
+    return read_launches(kernel_mods,
+                         ("majx", "fanout", "megakernel", "mismatch"),
                          sess.dispatch_count - start, "session")
+
+
+def _numpy_op(op: str, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """numpy's uint32 arithmetic for a §8.1 op; division by zero gives
+    the reference's convention (quotient all ones)."""
+    if op == "div":
+        safe = np.where(b == 0, 1, b)
+        return np.where(b == 0, np.uint32(0xFFFFFFFF), a // safe)
+    return {"and": np.bitwise_and, "or": np.bitwise_or,
+            "xor": np.bitwise_xor, "add": np.add, "sub": np.subtract,
+            "mul": np.multiply}[op](a, b).astype(np.uint32)
+
+
+def _sync(torch) -> None:
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase_arith(torch, kernel_mods, timer=None) -> dict:
+    """§8.1 arithmetic through ``DramSession()``; returns each kernel's
+    launches.  With a :class:`Timer`, the megakernel launches of add and
+    mul at full width and of the largest 2048-word program are timed on
+    the card afterwards, outside the counted window."""
+    from repro_torch.compile import (build_schedule, compile_elementwise,
+                                     lower_schedule, trace_planes)
+    from repro_torch.core import bitplanes as bp
+    from repro_torch.core.bitplanes import from_u32, to_u32
+    from repro_torch.kernels.bitserial import ops as bitserial_ops
+    from repro_torch.kernels.megakernel import ops as mega_ops
+    from repro_torch.pud.arith import OPS
+    from repro_torch.pud.offload import plan_program
+
+    sess = new_session("smoke/arith")
+    to_time = {}        # case -> CompiledProgram, timed after the window
+    rng = np.random.default_rng(2)
+    zero_launches(kernel_mods)
+    start = sess.dispatch_count
+
+    # Packing 2**23 lanes into 32 planes and back: on the host, where the
+    # tracer packs the operands, and on the card, where the results are
+    # unpacked from the final image.
+    lanes = WORDS * 32
+    a, b = rng.integers(0, 2**32, (2, lanes), dtype=np.uint32)
+    packing = {}
+    for where in ("cpu", DEVICE):
+        x = from_u32(a, where)
+        _sync(torch)
+        t0 = time.perf_counter()
+        planes = bp.pack_uint_elements(x)
+        _sync(torch)
+        t1 = time.perf_counter()
+        back = bp.unpack_uint_elements(planes, lanes)
+        _sync(torch)
+        packing[where] = {"pack_s": t1 - t0,
+                          "unpack_s": time.perf_counter() - t1}
+        check(torch.equal(back, x), f"pack/unpack on {where} round trip")
+    del x, planes, back
+    emit({"phase": "arith", "packing": packing, "lanes": lanes})
+
+    # Full width: add, sub, mul at tier 5 over one bank.
+    rows_want = {"add": 161, "sub": 193, "mul": 2177}
+    walls = {}
+    for op in ("add", "sub", "mul"):
+        want = _numpy_op(op, a, b)
+        t0 = time.perf_counter()
+        cp = compile_elementwise(op, a, b, tier=5, n_act=32)
+        trace_s = time.perf_counter() - t0
+        check(cp.state.shape == (rows_want[op], WORDS),
+              f"{op}: image {cp.state.shape}")
+        sched = build_schedule(cp.program)
+        t0 = time.perf_counter()
+        from_u32(cp.state, DEVICE)
+        _sync(torch)
+        upload_s = time.perf_counter() - t0
+        # The user's entry point: traced, then run fused by the session.
+        t0 = time.perf_counter()
+        with sess.count_dispatches() as scope:
+            out, prog = sess.elementwise(op, a, b, tier=5, n_act=32)
+        _sync(torch)
+        elementwise_s = time.perf_counter() - t0
+        check((to_u32(out) == want).all(), f"{op}: elementwise != numpy")
+        check(scope.count == sched.n_dispatches(),
+              f"{op}: {scope.count} fused dispatches, schedule says "
+              f"{sched.n_dispatches()}")
+        check(prog.to_json() == cp.program.to_json(),
+              f"{op}: elementwise traced another Program")
+        if op == "add":
+            before = dataclasses.replace(sess.cache.stats)
+            again, _ = sess.elementwise(op, a, b, tier=5, n_act=32)
+            check(torch.equal(again, out), "add: a repeated call differs")
+            check((sess.cache.stats.hits - before.hits,
+                   sess.cache.stats.misses - before.misses) == (1, 0),
+                  "add: a repeated call must hit the compile cache")
+            del again
+        outs, counts, secs = timed_runs(torch, sess, cp.program, cp.state)
+        for mode, final in outs.items():
+            check((to_u32(cp.outputs(final)) == want).all(),
+                  f"{op}/{mode} != numpy")
+        check(counts == {"fused": sched.n_dispatches(), "megakernel": 1},
+              f"{op}: dispatches {counts}")
+        if op == "add":
+            check(counts["fused"] == 34, f"add: {counts['fused']} fused "
+                  "dispatches, want 34")
+        walls[op] = secs
+        emit({"phase": "arith", "op": op, "tier": 5, "words": WORDS,
+              "ops": len(cp.program.ops), "levels": sched.n_levels,
+              "rows": cp.state.shape[0],
+              "image_mib": cp.state.nbytes / 2**20, "dispatches": counts,
+              "trace_s": trace_s, "upload_s": upload_s,
+              "elementwise_s": elementwise_s, "host_s": secs,
+              "exact": True})
+        if op in ("add", "mul"):
+            d = plan_program(cp.program, WORDS * 4, ctx=sess.ctx,
+                             sched=sess.schedule_for(cp.program))
+            emit({"phase": "arith", "offload": op, "gpu_ns": d.gpu_ns,
+                  "pud_ns": d.pud_ns, "winner": d.winner,
+                  "gpu_energy_nj": d.gpu_energy_nj,
+                  "pud_energy_nj": d.pud_energy_nj,
+                  "winner_energy": d.winner_energy, "detail": d.detail,
+                  "measured_warm_s": {m: secs[f"{m}/warm"]
+                                      for m in ("fused", "megakernel")}})
+            to_time[f"{op}[tier 5, {WORDS} words]"] = cp
+        del cp, outs, out
+
+    # Every op at every tier over one rank row, fused and megakernel.
+    lanes = RANK_WORDS * 32
+    a, b = rng.integers(0, 2**32, (2, lanes), dtype=np.uint32)
+    b[::61] = 0                # division by zero
+    b[1::59] = a[1::59]        # equal operands
+    b[2::53] = rng.integers(0, 2**8, len(b[2::53]), dtype=np.uint32)
+    largest = None
+    for tier in (3, 5, 7, 9):
+        for op in OPS:
+            want = _numpy_op(op, a, b)
+            t0 = time.perf_counter()
+            with sess.count_dispatches() as scope:
+                out, prog = sess.elementwise(op, a, b, tier=tier, n_act=32)
+            _sync(torch)
+            fused_s = time.perf_counter() - t0
+            check((to_u32(out) == want).all(),
+                  f"{op}/MAJ{tier} at {RANK_WORDS} words != numpy")
+            sched = build_schedule(prog)
+            check(scope.count == sched.n_dispatches(),
+                  f"{op}/MAJ{tier}: {scope.count} fused dispatches, "
+                  f"schedule says {sched.n_dispatches()}")
+            cp = compile_elementwise(op, a, b, tier=tier, n_act=32)
+            t0 = time.perf_counter()
+            with sess.count_dispatches() as scope:
+                final = sess.run_fused(cp.program, cp.state,
+                                       mode="megakernel")
+            _sync(torch)
+            mega_s = time.perf_counter() - t0
+            check(scope.count == 1, f"{op}/MAJ{tier}: megakernel took "
+                  f"{scope.count} dispatches")
+            check((to_u32(cp.outputs(final)) == want).all(),
+                  f"{op}/MAJ{tier} megakernel != numpy")
+            row = {"phase": "arith", "op": op, "tier": tier,
+                   "words": RANK_WORDS, "ops": len(prog.ops),
+                   "levels": sched.n_levels, "rows": cp.state.shape[0],
+                   "dispatches": {"fused": sched.n_dispatches(),
+                                  "megakernel": 1},
+                   "elementwise_s": fused_s, "megakernel_first_s": mega_s,
+                   "exact": True}
+            emit(row)
+            if largest is None or row["ops"] > largest["ops"]:
+                largest, largest_cp = row, cp
+    check((largest["op"], largest["tier"], largest["ops"]) ==
+          ("div", 3, 14784), f"largest program {largest}")
+    to_time[f"div[tier 3, {RANK_WORDS} words]"] = largest_cp
+    emit({"phase": "arith", "largest": "div", "tier": 3,
+          "certify_s": certify_seconds(largest_cp.program)})
+
+    # The bulk adder: one launch a call, bit-exact.
+    shapes = ((32, 128, RANK_WORDS), (32, WORDS))
+    for shape in shapes:
+        pa = from_u32(rng.integers(0, 2**32, shape, dtype=np.uint32), DEVICE)
+        pb = from_u32(rng.integers(0, 2**32, shape, dtype=np.uint32), DEVICE)
+        with sess.count_dispatches() as scope:
+            got = sess.add_planes(pa, pb)
+        check(scope.count == 1, f"add_planes{shape}: {scope.count} "
+              "dispatches")
+        check(torch.equal(got, bitserial_ops.bitserial_add_ref(pa, pb)),
+              f"add_planes{shape} != bitserial_add_ref")
+    emit({"phase": "arith", "add_planes": [list(s) for s in shapes],
+          "launches_each": 1, "bit_exact": True})
+
+    # The add8/16/32 goldens, re-traced from their generator's seeds
+    # (tests/golden/generate.py, _adder) without JAX.
+    for nbits in (8, 16, 32):
+        doc = load_golden(f"add{nbits}")
+        g = np.random.default_rng(nbits)
+        A = bp.pack(torch.from_numpy(g.integers(0, 2, (nbits, doc["words"]
+                                                       * 32)).astype(bool)))
+        B = bp.pack(torch.from_numpy(g.integers(0, 2, (nbits, doc["words"]
+                                                       * 32)).astype(bool)))
+        cp = trace_planes(lambda bs: list(bs.add(A, B)[0]), tier=5,
+                          n_act=32)
+        check(json.loads(cp.program.to_json()) == doc["ops"],
+              f"add{nbits}: the re-traced Program differs from the golden")
+        check(cp.state.shape[0] == doc["rows"], f"add{nbits}: rows")
+    emit({"phase": "arith", "goldens": "add8/add16/add32 re-traced, "
+          "equal to the frozen ops"})
+
+    launches = read_launches(kernel_mods, ("majx", "megakernel",
+                                           "bitserial"),
+                             sess.dispatch_count - start, "arith")
+
+    # add_u32 at 2**23 elements, outside the counted window: it calls the
+    # wrapper directly, so no backend counts its dispatch.
+    x, y = rng.integers(0, 2**32, (2, WORDS * 32), dtype=np.uint32)
+    before = bitserial_ops.launches
+    got = bitserial_ops.add_u32(from_u32(x, DEVICE), from_u32(y, DEVICE))
+    check(bitserial_ops.launches == before + (DEVICE == "cuda"),
+          "add_u32: one launch")
+    check((to_u32(got) == x + y).all(), "add_u32 != numpy")
+    emit({"phase": "arith", "add_u32": "2**23 elements, one launch, exact"})
+
+    # Device time of one megakernel launch per case (image already on
+    # the card, tables uploaded), beside the bytes its padded tables move.
+    for case, cp in to_time.items():
+        if timer is None:
+            break
+        low = lower_schedule(build_schedule(cp.program))
+        tables = mega_ops.upload_tables(low, DEVICE)
+        state = from_u32(cp.state, DEVICE)
+        rows, words = state.shape
+        slots = low.n_levels * low.w_max
+        emit({"phase": "arith", "megakernel_device": case,
+              "ms": timer(lambda: mega_ops.run_lowering(
+                  low, state, tables=tables), reps=3, warmup=1),
+              "levels": low.n_levels, "w_max": low.w_max,
+              "x_max": low.x_max, "live_slots": int(sum(map(sum,
+                                                            low.level_meta))),
+              "padded_slots": slots,
+              "padded_traffic_ms": bound(slots * (low.x_max + 3) * words * 4,
+                                      0)[0]})
+    return launches
+
+
 
 
 def main() -> int:
@@ -598,30 +863,44 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import launch
+    from repro_torch.kernels.bitserial import ops as bitserial_ops
     from repro_torch.kernels.majx import ops as majx_ops
     from repro_torch.kernels.megakernel import ops as mega_ops
     from repro_torch.kernels.mismatch import ops as mismatch_ops
     from repro_torch.kernels.rowcopy import ops as rowcopy_ops
 
     kernel_mods = {"majx": majx_ops, "fanout": rowcopy_ops,
-                   "megakernel": mega_ops, "mismatch": mismatch_ops}
+                   "megakernel": mega_ops, "mismatch": mismatch_ops,
+                   "bitserial": bitserial_ops}
 
-    smi = phase_build(launch)
+    walls = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    smi = timed("build", phase_build, launch)
     timer = Timer(torch)
-    rows = phase_kernels(torch, timer)
-    phase_launch_overhead(torch)
-    path = phase_path(torch, kernel_mods)
-    session = phase_session(torch, kernel_mods)
+    rows = timed("kernels", phase_kernels, torch, timer)
+    timed("launch", phase_launch_overhead, torch)
+    path = timed("path", phase_path, torch, kernel_mods)
+    session = timed("session", phase_session, torch, kernel_mods)
+    arith = timed("arith", phase_arith, torch, kernel_mods, timer)
+    emit({"phase": "walls", "seconds": walls})
 
     replaces = {
         "majx": "src/repro/kernels/majx/kernel.py:74",
         "fanout": "src/repro/kernels/rowcopy/kernel.py:27",
         "megakernel": "src/repro/kernels/megakernel/kernel.py:65",
         "mismatch": "src/repro/kernels/mismatch/kernel.py:38",
+        "bitserial": "src/repro/kernels/bitserial/kernel.py:38",
     }
     main_case = {"majx": "majx[maj9_tree level]", "fanout": "fanout[31]",
                  "megakernel": "megakernel[add32]",
-                 "mismatch": "mismatch[add32 image]"}
+                 "mismatch": "mismatch[add32 image]",
+                 "bitserial": "bitserial[bank]"}
     kernels = []
     for name, key in main_case.items():
         row = rows[key]
@@ -629,9 +908,10 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": replaces[name],
-            "launches": path[name] + session[name],
+            "launches": path[name] + session[name] + arith[name],
             "launches_by_path": {"path": path[name],
-                                 "session": session[name]},
+                                 "session": session[name],
+                                 "arith": arith[name]},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

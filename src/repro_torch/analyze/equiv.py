@@ -170,14 +170,21 @@ def exec_lowering(dom: SymbolicDomain, low: MegaLowering) -> list[int]:
     """
     state = [dom.const0, dom.const1, dom.const0]   # zero / one / trash
     state += [dom.input(r) for r in range(low.n_rows)]
+    # Python lists: one conversion, not a numpy scalar read per slot.
+    srcs, dsts, invs = low.src.tolist(), low.dst.tolist(), low.inv.tolist()
+    # dom.maj is a function of its operands (its first call interns the
+    # term), so the padded slots' repeated constant votes are looked up.
+    votes: dict[tuple[int, ...], int] = {}
     for li in range(low.n_levels):
         entry = list(state)
         for w in range(low.w_max):
-            operands = tuple(entry[int(r)] for r in low.src[li, w])
-            v = dom.maj(operands)
-            if low.inv[li, w]:
+            operands = tuple(entry[r] for r in srcs[li][w])
+            v = votes.get(operands)
+            if v is None:
+                v = votes[operands] = dom.maj(operands)
+            if invs[li][w]:
                 v = dom.not_(v)
-            state[int(low.dst[li, w])] = v
+            state[dsts[li][w]] = v
     return state
 
 

@@ -33,8 +33,6 @@ from __future__ import annotations
 import collections
 from typing import Iterator, Optional
 
-import numpy as np
-
 from repro_torch.analyze.report import ERROR, WARNING, Finding
 from repro_torch.compile.megakernel import (MegaLowering, N_CONST_ROWS,
                                             ONE_ROW, TRASH_ROW, ZERO_ROW)
@@ -216,10 +214,11 @@ def schedule_findings(sched: Schedule, program: Optional[Program] = None,
 # --------------------------------------------------- lowered slot tables
 
 
-def _is_inert_slot(src_row: np.ndarray, dst: int, inv: int) -> bool:
-    """The padding shape :func:`lower_schedule` emits for unused slots."""
+def _is_inert_slot(src_row, dst: int, inv: int) -> bool:
+    """The padding shape :func:`lower_schedule` emits for unused slots
+    (``src_row``: the slot's operand rows, an array or a list)."""
     return (dst == TRASH_ROW and inv == 0
-            and bool(((src_row == ZERO_ROW) | (src_row == ONE_ROW)).all()))
+            and all(r == ZERO_ROW or r == ONE_ROW for r in src_row))
 
 
 def lowering_findings(low: MegaLowering,
@@ -232,12 +231,16 @@ def lowering_findings(low: MegaLowering,
             "race", ERROR, "TAB_X_PARITY",
             f"{where}: padded vote arity x_max={low.x_max} is even — "
             f"majority is undefined"))
+    # Python lists: one conversion, not a numpy scalar read per slot.
+    srcs, dsts, invs = low.src.tolist(), low.dst.tolist(), low.inv.tolist()
     for li in range(low.n_levels):
         writers: dict[int, tuple] = {}   # row -> (operand tuple, inv)
         for w in range(low.w_max):
-            src_row = low.src[li, w]
-            dst = int(low.dst[li, w])
-            inv = int(low.inv[li, w])
+            src_row, dst, inv = srcs[li][w], dsts[li][w], invs[li][w]
+            if _is_inert_slot(src_row, dst, inv):
+                # Padding: in range, reads only the constant rows and
+                # writes only trash, so no check below can fire on it.
+                continue
             here = f"level {li} / slot {w}"
             if not 0 <= dst < n_aug:
                 out.append(Finding(
@@ -258,8 +261,7 @@ def lowering_findings(low: MegaLowering,
                     f"{where}: {here} writes constant row {dst} — the "
                     f"0/1 planes every padded vote depends on",
                     where=here))
-            inert = _is_inert_slot(src_row, dst, inv)
-            if not inert and TRASH_ROW in src_row:
+            if TRASH_ROW in src_row:
                 out.append(Finding(
                     "race", ERROR, "RACE_TRASH_READ",
                     f"{where}: {here} reads the trash row "
@@ -267,7 +269,7 @@ def lowering_findings(low: MegaLowering,
                     f"holds garbage from prior levels", where=here))
             if dst == TRASH_ROW:
                 continue  # trash collects every inert write; never raced
-            sig = (tuple(int(r) for r in src_row), inv)
+            sig = (tuple(src_row), inv)
             if dst in writers and writers[dst] != sig:
                 out.append(Finding(
                     "race", ERROR, "RACE_WAW_SLOTS",

@@ -6,6 +6,10 @@ A backend executes PUD work at two granularities through one interface:
   ``rowcopy(src, n_dst)``, ``mismatch(a, b)``, ``add_planes(a, b)`` on
   packed bit-planes (the layout of :mod:`repro_torch.core.bitplanes`:
   int32 tensors holding uint32 words);
+* **§8.1 arithmetic** — ``elementwise(op, a, b)`` runs a bit-serial
+  microbenchmark (:mod:`repro_torch.pud.arith`) with this backend as the
+  gate executor (``gate_maj`` / ``gate_not``), or, on batch-native
+  backends, as one traced Program through ``run_fused``;
 * **programs** — ``run(program, state)`` interprets a
   :class:`repro_torch.pud.isa.Program` whose ops carry row addresses
   against a ``(rows, words)`` subarray image, and ``run_fused(program,
@@ -25,7 +29,7 @@ from __future__ import annotations
 import abc
 import contextlib
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -265,3 +269,27 @@ class Backend(abc.ABC):
             # FRAC: neutral rows don't vote, value-wise a no-op; WR/RD
             # are I/O accounting ops with no in-array effect.
             raise ValueError(f"unknown op kind {op.kind}")
+
+    # ------------------------------------------- §8.1 compiled arithmetic
+    def elementwise(self, op: str, a, b, tier: Optional[int] = None,
+                    n_act: Optional[int] = None):
+        """Run a §8.1 microbenchmark through this backend's gates.
+
+        Returns (int32 tensor of the uint32 results, recorded Program) —
+        the Program prices latency/energy under the shared calibration
+        regardless of which backend computed the values.
+        """
+        from repro_torch.pud.arith import run_elementwise
+
+        return run_elementwise(
+            op, a, b, tier=tier or self.ctx.tier,
+            n_act=n_act or self.ctx.n_act, executor=self)
+
+    # GateExecutor protocol (repro_torch.pud.arith) -----------------------
+    def gate_maj(self, planes: Sequence[torch.Tensor], x: int,
+                 n_act: int) -> torch.Tensor:
+        return self.majx(torch.stack([self.words(p) for p in planes]),
+                         x=x, n_act=n_act)
+
+    def gate_not(self, p: torch.Tensor) -> torch.Tensor:
+        return ~self.words(p)

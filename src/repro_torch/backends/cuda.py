@@ -2,7 +2,8 @@
 
 Launches the kernels of :mod:`repro_torch.kernels` (bit-sliced CSA MAJX,
 fan-out Multi-RowCopy, the whole-schedule megakernel, the mismatch
-count behind :meth:`success_rate`) on state tensors
+count behind :meth:`success_rate`, the bit-serial adder behind
+:meth:`add_planes`) on state tensors
 that live on ``ctx.device`` — the card by default.  With
 ``ExecutionContext(device="cpu")`` every wrapper computes with its plain
 PyTorch version instead, which is how the tests run it without a card;
@@ -19,8 +20,11 @@ executes end-to-end.  ``self.dispatch_count`` counts launches, and each
 accrues :data:`repro_torch.core.costmodel.COST`-priced energy (launch
 round-trip at board power + device-memory traffic).
 
-The bit-serial-add kernel is not ported yet: :meth:`add_planes`
-raises until it is.
+§8.1 arithmetic (:meth:`elementwise`) takes the fused path: the gate
+stream is traced into one addressed Program (:mod:`repro_torch.compile.
+trace`) and run by :meth:`run_fused`, so its kernels are MAJX (and the
+megakernel when asked for); the bulk adder :meth:`add_planes` is one
+bit-serial launch.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from repro_torch.compile.schedule import build_schedule
 from repro_torch.core import bitplanes as bp
 from repro_torch.core import calibration as cal
 from repro_torch.core.costmodel import COST
+from repro_torch.kernels.bitserial import ops as bitserial_ops
 from repro_torch.kernels.majx import ops as majx_ops
 from repro_torch.kernels.megakernel import ops as mega_ops
 from repro_torch.kernels.mismatch import ops as mismatch_ops
@@ -57,7 +62,7 @@ class CudaBackend(Backend):
             name=self.name,
             description="hand-written CUDA kernels for Hopper (CSA "
                         "bit-sliced MAJX, fan-out MRC, megakernel, "
-                        "mismatch count)",
+                        "mismatch count, bit-serial adder)",
             stochastic=False,
             device_model=False,
             accelerated=True,
@@ -108,9 +113,15 @@ class CudaBackend(Backend):
         return count
 
     def add_planes(self, a, b) -> torch.Tensor:
-        raise NotImplementedError(
-            "cuda backend: the bit-serial adder kernel is not ported yet "
-            "(ROADMAP.md, queue 2 item 5: bitserial_add_pallas)")
+        """Ripple-carry sum of two (NBITS, ...) plane stacks in ONE
+        kernel launch (accounted ``3 * a.numel() * 4`` bytes: both
+        operands in, the sum out)."""
+        a, b = self.words(a), self.words(b)
+        out = bitserial_ops.bitserial_add(     # raises before a launch
+            a.contiguous(), b.contiguous(),    # on unequal shapes
+            threads=self.ctx.threads_per_block)
+        self._launch(3 * a.numel() * 4)
+        return out
 
     # ------------------------------------------------- fused program path
     def run_fused(self, program: Program, state, *, sched=None,

@@ -107,12 +107,53 @@ def majority(planes: torch.Tensor, axis: int = 0) -> torch.Tensor:
     """Bitwise majority across ``planes`` (odd count) along ``axis``.
 
     Each output bit is 1 iff more than half the stacked bits are 1 — the
-    charge-sharing semantics of an N-row activation for odd N.
+    charge-sharing semantics of an N-row activation for odd N.  This is
+    the plain version, which expands every word to 32 bit lanes;
+    :func:`majority_words` computes the same function word-parallel.
     """
     planes = torch.movedim(planes, axis, 0)
     n = planes.shape[0]
     count = _word_bits(planes).sum(dim=0)
     return _pack_word_bits((2 * count > n).to(torch.int32))
+
+
+def maj3_words(a: torch.Tensor, b: torch.Tensor,
+               c: torch.Tensor) -> torch.Tensor:
+    """Closed-form bitwise MAJ3 on packed words: (a&b)|(b&c)|(a&c)."""
+    return (a & b) | (b & c) | (a & c)
+
+
+def majority_words(planes: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """:func:`majority`, computed on whole words (no bit expansion).
+
+    A bit-sliced carry-save counter, as ``csrc/bitslice.cuh`` runs it on
+    the card: digit ``i`` holds bit ``i`` of all 32 bitlines' counts,
+    each plane ripples in with AND/XOR, and the digits are compared
+    against the threshold ``n // 2 + 1`` most significant first.  Only
+    bitwise AND/OR/XOR/NOT touch the words, so the int32 storage needs
+    no masking, and the temporaries are a few planes, not 32 lanes a
+    word.
+    """
+    planes = torch.movedim(planes, axis, 0)
+    n = planes.shape[0]
+    if n == 0:
+        return planes.new_zeros(planes.shape[1:])
+    n_digits = n.bit_length()   # holds any count <= n
+    digits = [torch.zeros_like(planes[0]) for _ in range(n_digits)]
+    for plane in planes:
+        carry = plane
+        for i in range(n_digits):
+            digits[i], carry = digits[i] ^ carry, digits[i] & carry
+    thresh = n // 2 + 1         # count > n / 2
+    gt = torch.zeros_like(planes[0])
+    eq = torch.full_like(planes[0], ONES)
+    for i in reversed(range(n_digits)):
+        if (thresh >> i) & 1:
+            eq = eq & digits[i]
+        else:
+            gt = gt | (eq & digits[i])
+            eq = eq & ~digits[i]
+    return gt | eq
 
 
 def pack_uint_elements(x: torch.Tensor, n_bits: int = 32) -> torch.Tensor:
@@ -123,23 +164,36 @@ def pack_uint_elements(x: torch.Tensor, n_bits: int = 32) -> torch.Tensor:
     modulo 2**32).  Output: int32 planes of shape
     (..., n_bits, ceil(k/32)) — plane ``i`` holds bit ``i`` of every
     element, the column-parallel layout the §8.1 microbenchmarks
-    compute in.
+    compute in.  One plane is built at a time in int32, so the
+    temporaries are about the size of the input; planes past the 32nd
+    are zero.
     """
-    x = torch.as_tensor(x).to(torch.int64) & 0xFFFFFFFF
-    shifts = _shifts(n_bits, x.device)
-    bits = (x[..., None, :] >> shifts[:, None]) & 1  # (..., n_bits, k)
-    return pack(bits)
+    x = torch.as_tensor(x)
+    if x.dtype != torch.int32:
+        x = wrap_i32(x.to(torch.int64) & 0xFFFFFFFF)
+    pad = n_words(x.shape[-1]) * WORD_BITS - x.shape[-1]
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+    lanes = x.reshape(*x.shape[:-1], -1, WORD_BITS)
+    shifts = torch.arange(WORD_BITS, dtype=torch.int32, device=x.device)
+    # Disjoint bits: the int32 sum of a word's lanes is their OR.
+    planes = [(((lanes >> i) & 1) << shifts).sum(-1, dtype=torch.int32)
+              if i < WORD_BITS else lanes.new_zeros(lanes.shape[:-1])
+              for i in range(n_bits)]
+    return torch.stack(planes, dim=-2)
 
 
 def unpack_uint_elements(planes: torch.Tensor, k: int) -> torch.Tensor:
     """Inverse of :func:`pack_uint_elements` -> int32 tensor (..., k).
 
-    Each element holds the ``uint32`` bit pattern of the value.
+    Each element holds the ``uint32`` bit pattern of the value; planes
+    past the 32nd carry no bit of it.  One plane is unpacked at a time.
     """
-    n_bits = planes.shape[-2]
-    bits = unpack(planes, k).to(torch.int64)  # (..., n_bits, k)
-    shifts = _shifts(n_bits, planes.device)
-    return wrap_i32((bits << shifts[:, None]).sum(dim=-2) & 0xFFFFFFFF)
+    out = planes.new_zeros((*planes.shape[:-2], k))
+    for i in range(min(planes.shape[-2], WORD_BITS)):
+        bits = _word_bits(planes[..., i, :]).reshape(*planes.shape[:-2], -1)
+        out |= bits[..., :k] << i
+    return out
 
 
 def bitcast_to_planes(x: torch.Tensor

@@ -8,6 +8,8 @@ state.  What crosses between them is plain data — JSON and numpy arrays
 * :func:`lowering_from_arrays` — a ``MegaLowering``'s tables;
 * :func:`context_from_dict` — ``dataclasses.asdict`` of an
   ``ExecutionContext``;
+* :func:`compiled_program_from` — a traced §8.1 ``CompiledProgram``
+  (its Program's JSON, image, output rows and lane count);
 * :func:`state_to_device` / :func:`state_to_numpy` — a ``uint32``
   (rows, words) image to and from the port's int32 tensors.
 """
@@ -20,6 +22,7 @@ import numpy as np
 
 from repro_torch.backends.context import ExecutionContext, Timings
 from repro_torch.compile.megakernel import MegaLowering
+from repro_torch.compile.trace import CompiledProgram
 from repro_torch.core.bitplanes import from_u32 as state_to_device  # noqa
 from repro_torch.core.bitplanes import to_u32 as state_to_numpy  # noqa
 from repro_torch.pud.isa import Program
@@ -67,3 +70,20 @@ def context_from_dict(d: dict) -> ExecutionContext:
     if isinstance(kw.get("timings"), dict):
         kw["timings"] = Timings(**kw["timings"])
     return ExecutionContext(**kw)
+
+
+def compiled_program_from(program_json: str, state, out_rows,
+                          n_lanes: int) -> CompiledProgram:
+    """The port's CompiledProgram for a reference one's parts: its
+    ``program.to_json()``, its (rows, words) ``uint32`` image, its
+    ``out_rows`` and ``n_lanes``."""
+    state = np.ascontiguousarray(state, dtype=np.uint32)
+    if state.ndim != 2:
+        raise ValueError(f"state must be a (rows, words) image, got shape "
+                         f"{state.shape}")
+    out_rows = tuple(int(r) for r in out_rows)
+    if any(not 0 <= r < state.shape[0] for r in out_rows):
+        raise ValueError(f"out_rows {out_rows} outside the image's "
+                         f"{state.shape[0]} rows")
+    return CompiledProgram(program_from_json(program_json), state,
+                           out_rows, int(n_lanes))

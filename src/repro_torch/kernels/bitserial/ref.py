@@ -1,9 +1,7 @@
-"""Plain PyTorch version of the fused bit-serial adder kernel.
-
-The reference's ``src/repro/kernels/bitserial/kernel.py``
-(bitserial_add_pallas) is still to port; the ``oracle`` backend computes
-with this version.
-"""
+"""Plain PyTorch version of the bit-serial adder kernel
+(``csrc/bitserial.cu``): what the wrapper computes on a CPU tensor, what
+the ``oracle`` backend computes with, and what the kernel is held
+against on the card."""
 
 from __future__ import annotations
 

@@ -42,7 +42,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 #: The kernel sources, one shared library each.
-SOURCES = ("majx", "fanout", "megakernel", "mismatch")
+SOURCES = ("majx", "fanout", "megakernel", "mismatch", "bitserial")
 #: Largest 1-D grid a launch asks for; a grid-stride loop covers the rest.
 MAX_BLOCKS = 2**31 - 1
 

@@ -1,3 +1,6 @@
-"""PUD runtime: the addressed instruction stream (:mod:`.isa`)."""
+"""PUD runtime: the addressed instruction stream (:mod:`.isa`), the §8.1
+bit-serial arithmetic (:mod:`.arith`), the offload planner
+(:mod:`.offload`) and the latency re-exports (:mod:`.latency`)."""
 
 from repro_torch.pud.isa import Program, PUDOp  # noqa: F401
+from repro_torch.pud.arith import BitSerial, run_elementwise  # noqa: F401

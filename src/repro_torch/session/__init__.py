@@ -17,10 +17,9 @@ so a repeated program skips straight to fused execution.
 >>> out = b.maj(ops[0], ops[1], ops[2])
 >>> final = b.run()                             # validate -> cache -> fuse
 >>> sess.success_rate(final[out.index], want)   # the mismatch kernel
+>>> sums, prog = sess.elementwise("add", a, b)  # §8.1, traced + fused
 
 ``repro_torch.backends.get_backend`` remains as the layer underneath.
-§8.1 arithmetic (``DramSession.elementwise``) waits for the port of
-``pud.arith``.
 """
 
 from repro_torch.session.builder import SessionProgram

@@ -18,20 +18,19 @@ things every consumer was hand-assembling on top of the registry:
   ``run_fused``.
 
 A session also satisfies the backend surface by delegation (bulk ops,
-``capabilities``, dispatch counters), so anything that accepted a
-``Backend`` accepts a ``DramSession``.  Results are what the backend
-returns: ``int32`` tensors on the session's device (the card unless the
-context names another), and a Python float from :meth:`success_rate`.
-
-Not yet ported: :meth:`elementwise` (§8.1 arithmetic) needs
-``pud.arith``, and the ``GateExecutor`` hooks (``gate_maj`` /
-``gate_not``) need the backend's gate methods; both come with the
-arithmetic slice (ROADMAP.md, queue 1 item 6).
+``capabilities``, dispatch counters, the ``GateExecutor`` hooks
+``gate_maj`` / ``gate_not``), so anything that accepted a ``Backend``
+accepts a ``DramSession``.  :meth:`elementwise` runs a §8.1
+microbenchmark with the session as the executor, so on a batch-native
+backend the traced Program goes through :meth:`run_fused` — the compile
+cache and certification.  Results are what the backend returns: ``int32``
+tensors on the session's device (the card unless the context names
+another), and a Python float from :meth:`success_rate`.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -140,11 +139,13 @@ class DramSession:
                     n_act: Optional[int] = None):
         """Run a §8.1 microbenchmark with this session as the executor.
 
-        Not ported yet: it needs ``pud.arith``.
-        """
-        raise NotImplementedError(
-            "DramSession.elementwise: §8.1 arithmetic (pud.arith) is not "
-            "ported yet (ROADMAP.md, queue 1 item 6)")
+        Batch-native backends take the fused path through
+        :meth:`run_fused` — i.e. through the compile cache."""
+        from repro_torch.pud.arith import run_elementwise
+
+        return run_elementwise(
+            op, a, b, tier=tier or self.ctx.tier,
+            n_act=n_act or self.ctx.n_act, executor=self)
 
     # ------------------------------------------------------ bulk delegation
     def capabilities(self):
@@ -169,6 +170,14 @@ class DramSession:
     def success_rate(self, got: torch.Tensor, want: torch.Tensor,
                      n_bits: Optional[int] = None) -> float:
         return self.backend.success_rate(got, want, n_bits=n_bits)
+
+    # GateExecutor protocol (repro_torch.pud.arith) ---------------------
+    def gate_maj(self, planes: Sequence[torch.Tensor], x: int,
+                 n_act: int) -> torch.Tensor:
+        return self.backend.gate_maj(planes, x, n_act)
+
+    def gate_not(self, p: torch.Tensor) -> torch.Tensor:
+        return self.backend.gate_not(p)
 
     # ------------------------------------------------- dispatch counters
     @property

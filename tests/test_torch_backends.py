@@ -144,20 +144,29 @@ def test_registry():
 
 
 def test_unported_kernels_raise():
+    """No kernel is left unported, so nothing raises for want of one:
+    ``add_planes`` (the last, which raised ``NotImplementedError`` here
+    until the bit-serial kernel was ported) and ``mismatch`` are one
+    dispatch each with the oracle's result, and operands of unequal
+    size are refused without a dispatch."""
     be = get_backend("cuda", CPU)
+    oracle = get_backend("oracle", CPU)
+    rng = np.random.default_rng(12)
+    pa, pb = rand_u32(rng, 2, 8, 2, 5)
+    pa[:, 0, 0] = 0xFFFFFFFF
+    assert torch.equal(be.add_planes(pa, pb), oracle.add_planes(pa, pb))
+    assert be.dispatch_count == 1
+    with pytest.raises(ValueError, match="must be equal"):
+        be.add_planes(pa, pb[:4])
+    assert be.dispatch_count == 1
     a = np.zeros((2, 4), np.uint32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        be.add_planes(a, a)
-    assert be.dispatch_count == 0
-    # The mismatch kernel is ported: one dispatch, the oracle's count.
     b = a.copy()
     b[1, 3] = 0x80000001
-    assert int(be.mismatch(a, b)) == 2 and be.dispatch_count == 1
-    assert be.success_rate(a, b) == get_backend(
-        "oracle", CPU).success_rate(a, b) == 1 - 2 / 256
+    assert int(be.mismatch(a, b)) == 2 and be.dispatch_count == 2
+    assert be.success_rate(a, b) == oracle.success_rate(a, b) == 1 - 2 / 256
     with pytest.raises(ValueError, match="must be equal"):
         be.mismatch(a, b[:1])
-    assert be.dispatch_count == 2
+    assert be.dispatch_count == 3
 
 
 def test_oracle_mismatch_and_adder_match_reference():

@@ -24,6 +24,7 @@ from repro_torch import interop
 from repro_torch.backends import ExecutionContext, get_backend
 from repro_torch.compile import build_schedule, lower_schedule
 from repro_torch.core import bitplanes as bp
+from repro_torch.kernels.bitserial import ops as bitserial_ops
 from repro_torch.kernels.majx import ops as majx_ops
 from repro_torch.kernels.megakernel import ops as mega_ops
 from repro_torch.kernels.megakernel.ref import schedule_exec_ref
@@ -226,3 +227,89 @@ def test_session_heal_agrees_across_modes_and_oracle(cuda_device):
     assert torch.equal(tile.cpu(), bp.from_u32(clean, "cpu"))
     assert int(sess.mismatch(reps[0], tile)) == 7
     assert sess.success_rate(reps[0], tile) == 1 - 7 / (8 * 5000 * 32)
+
+
+#: NBITS 1/8/32/33 over 2-D and 3-D plane stacks of 1 to 12,297 words,
+#: and 32 planes of 2**22 words.
+BITSERIAL_CASES = [(n, s) for n in (1, 8, 32, 33)
+                   for s in ((1,), (3,), (4099,), (3, 4099))]
+BITSERIAL_CASES.append((32, (2**22,)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbits,shape", BITSERIAL_CASES, ids=str)
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+def test_bitserial_kernel_matches_plain(cuda_device, nbits, shape, offset):
+    """``offset`` 1 starts both operands one word into their storage,
+    which takes the kernel's single-word path, as odd word counts do."""
+    n = nbits * int(np.prod(shape))
+    a = _words(n, n + offset, device=cuda_device)[offset:]
+    b = _words(n + 1, n + offset, device=cuda_device)[offset:]
+    a, b = a.view(nbits, *shape), b.view(nbits, *shape)
+    before = bitserial_ops.launches
+    got = bitserial_ops.bitserial_add(a, b)
+    assert bitserial_ops.launches == before + 1
+    assert torch.equal(got, bitserial_ops.bitserial_add_ref(a, b))
+    assert torch.equal(got.cpu(), bitserial_ops.bitserial_add(a.cpu(),
+                                                              b.cpu()))
+
+
+@pytest.mark.cuda
+def test_bitserial_kernel_refuses_without_a_launch(cuda_device):
+    a = _words(1, 8, 300, device=cuda_device)
+    cuda = get_backend("cuda", ExecutionContext(device="cuda"))
+    before = bitserial_ops.launches
+    for other in (a[:4], a[:, :200], a.view(8, 3, 100)):
+        with pytest.raises(ValueError, match="must be equal"):
+            bitserial_ops.bitserial_add(a, other.contiguous())
+        with pytest.raises(ValueError, match="must be equal"):
+            cuda.add_planes(a, other.contiguous())
+    assert bitserial_ops.launches == before and cuda.dispatch_count == 0
+    with cuda.count_dispatches() as scope:
+        out = cuda.add_planes(a, a)
+    assert scope.count == 1 and bitserial_ops.launches == before + 1
+    assert torch.equal(out, bitserial_ops.bitserial_add_ref(a, a))
+
+
+@pytest.mark.cuda
+def test_add_u32_kernel_matches_numpy(cuda_device):
+    rng = np.random.default_rng(20)
+    x, y = rng.integers(0, 2**32, (2, 2**20), dtype=np.uint32)
+    before = bitserial_ops.launches
+    got = bitserial_ops.add_u32(bp.from_u32(x, cuda_device),
+                                bp.from_u32(y, cuda_device))
+    assert bitserial_ops.launches == before + 1
+    assert got.device.type == "cuda"
+    assert (bp.to_u32(got) == x + y).all()
+
+
+def _numpy_op(op, a, b):
+    if op == "div":
+        return np.where(b == 0, np.uint32(0xFFFFFFFF),
+                        a // np.where(b == 0, 1, b)).astype(np.uint32)
+    return {"add": np.add, "mul": np.multiply}[op](a, b).astype(np.uint32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["add", "mul", "div"])
+def test_session_elementwise_agrees_with_oracle(cuda_device, op):
+    from repro_torch.compile import build_schedule, compile_elementwise
+
+    rng = np.random.default_rng(len(op))
+    a, b = rng.integers(0, 2**32, (2, 3000), dtype=np.uint32)
+    b[::7] = 0
+    b[1::11] = rng.integers(0, 256, len(b[1::11]), dtype=np.uint32)
+    want = _numpy_op(op, a, b)
+    sess = DramSession()
+    with sess.count_dispatches() as scope:
+        out, prog = sess.elementwise(op, a, b, tier=5, n_act=32)
+    assert out.device.type == "cuda" and (bp.to_u32(out) == want).all()
+    assert scope.count == build_schedule(prog).n_dispatches()
+    oracle = get_backend("oracle", ExecutionContext(device="cuda"))
+    ref, _ = oracle.elementwise(op, a, b, tier=5, n_act=32)
+    assert torch.equal(out, ref)
+    cp = compile_elementwise(op, a, b, tier=5, n_act=32)
+    with sess.count_dispatches() as scope:
+        final = sess.run_fused(cp.program, cp.state, mode="megakernel")
+    assert scope.count == 1
+    assert torch.equal(cp.outputs(final), out)

@@ -27,25 +27,36 @@ def _top(name: str) -> str:
     return name.split(".")[0]
 
 
+def _forbidden_imports(path: str) -> list[tuple[str, str]]:
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    offenders = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        offenders += [(path, n) for n in names if _top(n) in FORBIDDEN]
+    return offenders
+
+
 def test_no_forbidden_import_in_source():
     offenders = []
     for dirpath, _, files in os.walk(PKG_DIR):
         for fname in files:
-            if not fname.endswith(".py"):
-                continue
-            path = os.path.join(dirpath, fname)
-            with open(path) as f:
-                tree = ast.parse(f.read(), path)
-            for node in ast.walk(tree):
-                if isinstance(node, ast.Import):
-                    names = [a.name for a in node.names]
-                elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                    names = [node.module or ""]
-                else:
-                    continue
-                offenders += [(path, n) for n in names
-                              if _top(n) in FORBIDDEN]
+            if fname.endswith(".py"):
+                offenders += _forbidden_imports(os.path.join(dirpath, fname))
     assert not offenders
+
+
+def test_chip_smoke_imports_no_jax_and_no_reference():
+    """``chip_smoke.py`` runs on the card's machine, which has no JAX."""
+    path = os.path.join(os.path.dirname(os.path.dirname(PKG_DIR)),
+                        "chip_smoke.py")
+    assert os.path.exists(path)
+    assert not _forbidden_imports(path)
 
 
 def test_importing_every_module_loads_no_jax_and_no_reference():

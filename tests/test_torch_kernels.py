@@ -16,6 +16,7 @@ import torch
 from _proptest import rand_u32
 from repro.compile import build_schedule as ref_build_schedule
 from repro.compile import lower_schedule as ref_lower_schedule
+from repro.kernels.bitserial import ops as ref_bitserial
 from repro.kernels.majx import ops as ref_majx
 from repro.kernels.megakernel import ops as ref_mega
 from repro.kernels.megakernel.ref import schedule_exec_ref as ref_exec
@@ -23,6 +24,7 @@ from repro.kernels.mismatch import ops as ref_mismatch
 from repro.kernels.rowcopy import ops as ref_rowcopy
 from repro_torch import interop
 from repro_torch.core import bitplanes as bp
+from repro_torch.kernels.bitserial import ops as bitserial_ops
 from repro_torch.kernels.majx import ops as majx_ops
 from repro_torch.kernels.megakernel import ops as mega_ops
 from repro_torch.kernels.megakernel.ref import schedule_exec_ref
@@ -208,3 +210,80 @@ def test_mismatch_rejects_what_the_kernel_does_not_take():
         mismatch_ops.mismatch_count(a.view(2, 4).t(), a.view(2, 4).t())
     with pytest.raises(ValueError, match="operands on"):
         mismatch_ops.mismatch_count(a, a.to("meta"))
+
+
+# ----------------------------------------------------------- bitserial
+
+# NBITS 1/8/16/32/33, each in the 2-D (NBITS, C) and the 3-D
+# (NBITS, R, C) layout, over word counts 1, 3, 300 and 4099.
+BITSERIAL_CASES = [(1, (1,)), (1, (2, 3)), (8, (300,)), (8, (3, 4099)),
+                   (16, (4099,)), (16, (2, 1)), (32, (3,)),
+                   (32, (2, 300)), (33, (4099,)), (33, (3, 3))]
+
+
+@pytest.mark.parametrize("nbits,shape", BITSERIAL_CASES, ids=str)
+def test_bitserial_add_matches_pallas(nbits, shape):
+    rng = np.random.default_rng(nbits * 7 + len(shape))
+    a, b = rand_u32(rng, 2, nbits, *shape)
+    a[:, ..., 0] = 0xFFFFFFFF           # a carry through every plane
+    b[0, ..., 0] = 1
+    got = bitserial_ops.bitserial_add(_t(a), _t(b))
+    want = np.asarray(ref_bitserial.bitserial_add(jnp.asarray(a),
+                                                  jnp.asarray(b)))
+    assert got.shape == (nbits, *shape)
+    assert (bp.to_u32(got) == want).all()
+    assert (bp.to_u32(bitserial_ops.bitserial_add_ref(_t(a), _t(b)))
+            == np.asarray(ref_bitserial.bitserial_add_ref(a, b))).all()
+    assert bitserial_ops.launches == 0  # the CPU route launches nothing
+
+
+@pytest.mark.parametrize("k", [0, 1, 33, 1000])
+def test_add_u32_matches_numpy_and_pallas(k):
+    rng = np.random.default_rng(k)
+    a, b = rand_u32(rng, 2, k)
+    if k:
+        a[0], b[0] = 0xFFFFFFFF, 0xFFFFFFFF
+    got = bitserial_ops.add_u32(_t(a), _t(b))
+    assert got.dtype == torch.int32 and got.shape == (k,)
+    assert (bp.to_u32(got) == a + b).all()
+    if k:
+        assert (bp.to_u32(got) == np.asarray(ref_bitserial.add_u32(
+            jnp.asarray(a), jnp.asarray(b)))).all()
+    assert torch.equal(bitserial_ops.add_u32(_t(a).reshape(1, -1),
+                                             _t(b).to(torch.int64)), got)
+
+
+@pytest.mark.parametrize("sa,sb", [((8, 300), (8, 200)), ((8, 300), (4, 300)),
+                                   ((8, 2, 300), (8, 300))], ids=str)
+def test_bitserial_refuses_unequal_shapes(sa, sb):
+    """The reference takes operands of unequal shape and returns ``a``'s
+    shape: for (8, 300) + (8, 200) its columns past 256 are neither the
+    zero-padded sum nor ``a``; the port raises instead (ROADMAP.md
+    queue 3).  ``add_u32`` refuses unequal element counts, which the
+    reference also takes (33 + 34 elements give 33 sums)."""
+    rng = np.random.default_rng(len(sa))
+    a, b = rand_u32(rng, *sa), rand_u32(rng, *sb)
+    with pytest.raises(ValueError, match="must be equal"):
+        bitserial_ops.bitserial_add(_t(a), _t(b))
+    if len(sa) == len(sb):
+        assert np.asarray(ref_bitserial.bitserial_add(
+            jnp.asarray(a), jnp.asarray(b))).shape == sa
+    with pytest.raises(ValueError, match="must be equal"):
+        bitserial_ops.add_u32(_t(a[0]), _t(b[0, :-1]))
+    assert ref_bitserial.add_u32(jnp.arange(33, dtype=jnp.uint32),
+                                 jnp.arange(34, dtype=jnp.uint32)).shape \
+        == (33,)
+
+
+def test_bitserial_rejects_what_the_kernel_does_not_take():
+    a = torch.zeros((2, 8), dtype=torch.int32)
+    with pytest.raises(TypeError, match="int32"):
+        bitserial_ops.bitserial_add(a, a.to(torch.int64))
+    with pytest.raises(ValueError, match="contiguous"):
+        bitserial_ops.bitserial_add(a.t(), a.t())
+    with pytest.raises(ValueError, match="dims"):
+        bitserial_ops.bitserial_add(a[0], a[0])
+    with pytest.raises(ValueError, match="bit-plane"):
+        bitserial_ops.bitserial_add(a[:0], a[:0])
+    with pytest.raises(ValueError, match="operands on"):
+        bitserial_ops.bitserial_add(a, a.to("meta"))

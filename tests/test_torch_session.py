@@ -6,8 +6,8 @@ Every case runs the same script through ``repro.session`` (on the
 "cpu")``, where every kernel wrapper takes its plain version), and
 compares what a user of either sees: results bit for bit, dispatch
 counts, the three cache windows, program keys, built programs and
-images, error types and messages.  Nothing here needs ``sim`` or
-``pud.arith``.
+images, error types and messages, and the §8.1 ``elementwise`` path.
+Nothing here needs ``sim``.
 """
 
 import jax.numpy as jnp
@@ -395,9 +395,59 @@ def test_default_session_is_the_card():
 
 
 def test_elementwise_waits_for_the_arithmetic_slice():
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        DramSession("cuda", CPU).elementwise("add", np.zeros(4, np.uint32),
-                                             np.zeros(4, np.uint32))
+    """The arithmetic slice is in: ``elementwise`` (which raised
+    ``NotImplementedError`` until §8.1 was ported) runs, as a traced,
+    addressed Program, and gives numpy's uint32 sums."""
+    a = np.array([1, 0xFFFFFFFF, 7, 0x80000000], np.uint32)
+    b = np.array([2, 1, 0xFFFFFFF9, 0x80000000], np.uint32)
+    out, prog = DramSession("cuda", CPU).elementwise("add", a, b)
+    assert (bp.to_u32(out) == a + b).all()
+    assert prog.ops and all(op.dsts for op in prog.ops)
+
+
+@pytest.mark.parametrize("op", ["add", "xor"])
+def test_elementwise_matches_pallas_session(op):
+    """The fused §8.1 path through both sessions: results, dispatches,
+    Programs and all three cache windows, and a repeat is a hit."""
+    rng = np.random.default_rng(len(op))
+    a, b = rand_u32(rng, 2, 70)
+    ref = RefSession("pallas", RefContext(ideal=True))
+    sess = DramSession("cuda", CPU)
+    for run in range(2):
+        with ref.count_dispatches() as ref_scope:
+            ref_out, ref_prog = ref.elementwise(op, a, b, tier=5, n_act=32)
+        with sess.count_dispatches() as scope:
+            out, prog = sess.elementwise(op, a, b, tier=5, n_act=32)
+        assert (bp.to_u32(out) == np.asarray(ref_out)).all()
+        assert prog.to_json() == ref_prog.to_json()
+        assert scope.count == ref_scope.count
+        assert _stats(sess.cache) == _stats(ref.cache)
+    assert (bp.to_u32(out) == (a + b if op == "add" else a ^ b)).all()
+    if op == "add":
+        assert scope.count == 34
+    assert sess.cache.stats.hits == 1 and sess.cache.stats.misses == 1
+
+
+def test_oracle_session_elementwise_matches_reference_oracle():
+    """A non-batch backend computes gate by gate through the session's
+    hooks and records the cost-only Program."""
+    rng = np.random.default_rng(77)
+    a, b = rand_u32(rng, 2, 45)
+    b[3] = 0
+    sess = DramSession("oracle", CPU)
+    ref = RefSession("oracle", RefContext(ideal=True))
+    for op, tier in (("sub", 7), ("xor", 3), ("add", 9)):
+        out, prog = sess.elementwise(op, a, b, tier=tier, n_act=16)
+        ref_out, ref_prog = ref.elementwise(op, a, b, tier=tier, n_act=16)
+        assert (bp.to_u32(out) == np.asarray(ref_out)).all()
+        assert prog.to_json() == ref_prog.to_json()
+        assert not any(o.dsts for o in prog.ops)
+    planes = rand_u32(rng, 3, 6)
+    assert (bp.to_u32(sess.gate_maj(list(bp.from_u32(planes, "cpu")), 3,
+                                    4))
+            == np.asarray(ref.gate_maj(list(jnp.asarray(planes)), 3, 4))).all()
+    assert (bp.to_u32(sess.gate_not(bp.from_u32(planes[0], "cpu")))
+            == ~planes[0]).all()
 
 
 def test_certify_opt_out_matches_reference():
