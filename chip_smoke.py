@@ -18,6 +18,10 @@ Phases, one JSON line each:
    nvcc (all sources at once) and print the card's name and power limit;
 2. kernels — each kernel against its plain PyTorch version on the card,
    at the shapes the main paths give it, bit-exact, with median times;
+   the megakernel at add32 and at the largest §8.1 lowerings (mul at
+   tier 5 over 2**18 words, div at MAJ3 over 2048), in the regime its
+   planner picks and, where it fits, the other one, also held to the
+   padded tables' walk;
 3. path — the ``add32``, ``maj9_tree`` and ``mrc_fanout31`` golden
    Programs at 2**18 words a row (one DDR4 bank: 128 subarrays of one
    8 KiB rank row), plus the full ``erase_mrc31`` Multi-RowCopy wipe,
@@ -138,6 +142,79 @@ def vote_ops(x: int) -> int:
 
 
 # -------------------------------------------------------------- phases
+def megakernel_cost(plan, rows: int, words: int) -> dict:
+    """What one megakernel launch of ``plan`` on a (rows, words) image
+    must and may cost: the bound (the program rows read once and written
+    once; the three constant rows are made on the card, not moved; the
+    kept slots' votes as operations), and the traffic of the kept slots
+    (every kept operand read and every destination written once a
+    column) beside it."""
+    arity = plan.arity.tolist()
+    n_bytes = 2 * rows * words * 4
+    n_ops = sum(vote_ops(k) for k in arity) * words
+    kept = (sum(arity) + len(arity)) * words * 4
+    b_ms, b_by = bound(n_bytes, n_ops)
+    return {"bound_ms": b_ms, "bound_by": b_by,
+            "kept_slot_traffic_ms": kept / HBM_BYTES_PER_S * 1e3,
+            "levels": plan.n_levels, "kept_slots": plan.n_slots,
+            "n_bytes": n_bytes, "n_ops": n_ops}
+
+
+def megakernel_case(torch, record, key, timer, low, state,
+                    cols=None) -> None:
+    """Time one megakernel launch of ``low`` on ``state`` (tables on the
+    card) against its plain version, the walk of the same plan, and hold
+    it to the padded walk of the tables: on the whole image, or on its
+    first and last ``cols`` columns (word columns are independent).  The
+    regime the planner did not pick is timed beside it where it fits."""
+    from repro_torch.kernels.megakernel import ops as mega_ops
+    from repro_torch.kernels.megakernel.plan import (exec_plan_ref,
+                                                     plan_launch)
+    from repro_torch.kernels.megakernel.ref import schedule_exec_ref
+
+    tables = mega_ops.upload_tables(low, "cuda")
+    plan = tables.plan
+    rows, words = state.shape
+    lp = plan_launch(plan, rows, words)
+
+    def oracle(got):
+        if cols is None or 2 * cols >= words:
+            return max_abs_err(torch, got, schedule_exec_ref(low, state))
+        err = 0
+        for sl in (slice(0, cols), slice(words - cols, words)):
+            want = schedule_exec_ref(low, state[:, sl].contiguous())
+            err = max(err, max_abs_err(torch, got[:, sl], want))
+        return err
+
+    # The regime the planner did not pick, where it fits: the evidence
+    # for its choice, timed in the same run.
+    other = "streaming" if lp.regime == "resident" else "resident"
+    try:
+        plan_launch(plan, rows, words, regime=other)
+    except ValueError:
+        other_ms = None
+    else:
+        def run_other():
+            return mega_ops.run_lowering(low, state, tables=tables,
+                                         regime=other)
+        check(torch.equal(run_other(), mega_ops.run_lowering(
+            low, state, tables=tables)), f"{key}: the regimes disagree")
+        other_ms = timer(run_other, reps=5 if cols else 15)
+
+    cost = megakernel_cost(plan, rows, words)
+    record("megakernel", key,
+           lambda: mega_ops.run_lowering(low, state, tables=tables),
+           lambda: exec_plan_ref(plan, state), cost["n_bytes"],
+           cost["n_ops"], [low.n_levels, low.w_max, low.x_max, rows, words],
+           reps=5 if cols else 15, oracle=oracle,
+           extra={"regime": lp.regime, "strip": lp.strip,
+                  "threads": lp.threads, "smem_bytes": lp.smem_bytes,
+                  "other_regime": other, "other_regime_ms": other_ms,
+                  "oracle_cols": cols or words,
+                  **{k: cost[k] for k in ("kept_slot_traffic_ms",
+                                          "levels", "kept_slots")}})
+
+
 def phase_build(launch) -> str:
     t0 = time.perf_counter()
     seconds = launch.build_all()
@@ -158,14 +235,13 @@ def phase_build(launch) -> str:
 
 def phase_kernels(torch, timer) -> dict:
     """Each kernel vs its plain version at the main path's shapes."""
-    from repro_torch.compile import build_schedule, lower_schedule
+    from repro_torch.compile import (build_schedule, compile_elementwise,
+                                     lower_schedule)
     from repro_torch.core import bitplanes as bp
     from repro_torch.core.bitplanes import from_u32
     from repro_torch.interop import program_from_json
     from repro_torch.kernels.bitserial import ops as bitserial_ops
     from repro_torch.kernels.majx import ops as majx_ops
-    from repro_torch.kernels.megakernel import ops as mega_ops
-    from repro_torch.kernels.megakernel.ref import schedule_exec_ref
     from repro_torch.kernels.mismatch import ops as mismatch_ops
     from repro_torch.kernels.rowcopy import ops as rowcopy_ops
 
@@ -178,18 +254,24 @@ def phase_kernels(torch, timer) -> dict:
     rows = {}
 
     def record(name, key, kernel_fn, plain_fn, n_bytes, n_ops, shape,
-               library_fn=None, reps=15):
+               library_fn=None, reps=15, oracle=None, extra=None):
+        """``oracle(got)`` returns a further max_abs_err of the kernel's
+        output against an independent reference."""
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         err = max_abs_err(torch, got, want)
+        if oracle is not None:
+            err = max(err, oracle(got))
         check(got.shape == want.shape and err == 0,
               f"{key}: kernel disagrees with its plain version")
+        del got, want
         b_ms, b_by = bound(n_bytes, n_ops)
         row = {"name": name, "shape": shape, "max_abs_err": err,
                "ms": timer(kernel_fn, reps=reps),
                "plain_ms": timer(plain_fn, reps=min(reps, 5)),
                "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": timer(library_fn) if library_fn else None}
+               "library_ms": timer(library_fn) if library_fn else None,
+               **(extra or {})}
         emit({"phase": "kernels", "case": key, **row})
         rows[key] = row
 
@@ -210,19 +292,24 @@ def phase_kernels(torch, timer) -> dict:
            [31, WORDS], library_fn=lambda: src.unsqueeze(0)
            .expand(31, WORDS).contiguous())
 
-    # Megakernel: the add32 lowering on its 161-row image at full width.
+    # Megakernel: the add32 lowering on its 161-row image at full width,
+    # then the largest §8.1 lowerings, mul at tier 5 over one bank and
+    # div at MAJ3 over one rank row.  The plain version is the walk of
+    # the same plan; the padded tables' walk (schedule_exec_ref) is the
+    # oracle, on column slices where the full image would take minutes.
     doc = load_golden("add32")
     low = lower_schedule(build_schedule(
         program_from_json(json.dumps(doc["ops"]))))
-    state = words(doc["rows"], WORDS)
-    tables = mega_ops.upload_tables(low, "cuda")
-    live = sum(sum(m) for m in low.level_meta)
-    record("megakernel", "megakernel[add32]",
-           lambda: mega_ops.run_lowering(low, state, tables=tables),
-           lambda: schedule_exec_ref(low, state),
-           2 * (doc["rows"] + 3) * WORDS * 4,
-           live * WORDS * (vote_ops(low.x_max) + 1),
-           [low.n_levels, low.w_max, low.x_max, doc["rows"], WORDS])
+    megakernel_case(torch, record, "megakernel[add32]", timer, low,
+                    words(doc["rows"], WORDS))
+    for op, tier, width in (("mul", 5, WORDS), ("div", 3, RANK_WORDS)):
+        a, b = rng.integers(0, 2**32, (2, width * 32), dtype=np.uint32)
+        b[::61] = 0
+        cp = compile_elementwise(op, a, b, tier=tier, n_act=32)
+        low = lower_schedule(build_schedule(cp.program))
+        megakernel_case(torch, record, f"megakernel[{op} tier {tier}]",
+                        timer, low, from_u32(cp.state, "cuda"), cols=512)
+        del cp
 
     # Mismatch: two add32 images at full width (the success-rate check
     # of a whole run's output), then two exact cases: a known number of
@@ -273,8 +360,9 @@ def phase_kernels(torch, timer) -> dict:
 
 def phase_launch_overhead(torch) -> dict:
     """Host wall time (ns) of one 1-word fan-out launch, three ways: the
-    wrapper (checks, allocation, launch), ``launch.run`` on a
-    preallocated output, and the bare ctypes call on the current stream.
+    wrapper (checks, allocation, launch), ``launch.run`` with the entry
+    point looked up through ``launch.kernel`` on a preallocated output,
+    and the bare ctypes call on the current stream.
     """
     from repro_torch.kernels import launch
     from repro_torch.kernels.rowcopy import ops as rowcopy_ops
@@ -283,17 +371,21 @@ def phase_launch_overhead(torch) -> dict:
     out = torch.empty(1, dtype=torch.int32, device="cuda")
     fn = launch.kernel("fanout", "fanout_launch", rowcopy_ops._ARGS)
     stream = launch.VOID_P(torch.cuda.current_stream().cuda_stream)
+
+    def launch_run():
+        launch.run(launch.kernel("fanout", "fanout_launch",
+                                 rowcopy_ops._ARGS), "fanout", src.device,
+                   src.data_ptr(), out.data_ptr(), 1, 1, 1, 32)
+
     ways = {
         "wrapper": lambda: rowcopy_ops.fanout(src, 1),
-        "launch_run": lambda: launch.run(
-            fn, "fanout", src.device, src.data_ptr(), out.data_ptr(), 1, 1,
-            1, 32),
+        "launch_run": launch_run,
         "ctypes": lambda: fn(src.data_ptr(), out.data_ptr(), 1, 1, 1, 32,
                              stream),
     }
     n = 2000
     ns = {}
-    for way, call in ways.items():
+    for way, call in list(ways.items()) * 2:   # in turns, twice
         for _ in range(10):
             call()
         torch.cuda.synchronize()
@@ -301,7 +393,8 @@ def phase_launch_overhead(torch) -> dict:
         for _ in range(n):
             call()
         torch.cuda.synchronize()
-        ns[way] = (time.perf_counter() - t0) / n * 1e9
+        ns.setdefault(way, []).append((time.perf_counter() - t0) / n * 1e9)
+    ns = {way: min(t) for way, t in ns.items()}
     emit({"phase": "launch", "launch_overhead_ns": ns, "launches": n})
     return ns
 
@@ -643,6 +736,7 @@ def phase_arith(torch, kernel_mods, timer=None) -> dict:
     from repro_torch.core.bitplanes import from_u32, to_u32
     from repro_torch.kernels.bitserial import ops as bitserial_ops
     from repro_torch.kernels.megakernel import ops as mega_ops
+    from repro_torch.kernels.megakernel.plan import plan_launch
     from repro_torch.pud.arith import OPS
     from repro_torch.pud.offload import plan_program
 
@@ -832,7 +926,8 @@ def phase_arith(torch, kernel_mods, timer=None) -> dict:
     emit({"phase": "arith", "add_u32": "2**23 elements, one launch, exact"})
 
     # Device time of one megakernel launch per case (image already on
-    # the card, tables uploaded), beside the bytes its padded tables move.
+    # the card, plan uploaded), beside its bound and the traffic of the
+    # kept slots, and the bytes the padded tables would move.
     for case, cp in to_time.items():
         if timer is None:
             break
@@ -841,18 +936,20 @@ def phase_arith(torch, kernel_mods, timer=None) -> dict:
         state = from_u32(cp.state, DEVICE)
         rows, words = state.shape
         slots = low.n_levels * low.w_max
+        cost = megakernel_cost(tables.plan, rows, words)
         emit({"phase": "arith", "megakernel_device": case,
               "ms": timer(lambda: mega_ops.run_lowering(
                   low, state, tables=tables), reps=3, warmup=1),
-              "levels": low.n_levels, "w_max": low.w_max,
-              "x_max": low.x_max, "live_slots": int(sum(map(sum,
-                                                            low.level_meta))),
-              "padded_slots": slots,
+              "regime": plan_launch(tables.plan, rows, words).regime,
+              "bound_ms": cost["bound_ms"], "bound_by": cost["bound_by"],
+              "kept_slot_traffic_ms": cost["kept_slot_traffic_ms"],
+              "levels": low.n_levels, "plan_levels": cost["levels"],
+              "w_max": low.w_max, "x_max": low.x_max,
+              "live_slots": int(sum(map(sum, low.level_meta))),
+              "kept_slots": cost["kept_slots"], "padded_slots": slots,
               "padded_traffic_ms": bound(slots * (low.x_max + 3) * words * 4,
-                                      0)[0]})
+                                         0)[0]})
     return launches
-
-
 
 
 def main() -> int:

@@ -65,8 +65,8 @@ class ExecutionContext:
     * ``device`` — where state tensors live and kernels run: ``"cuda"``
       (the default: the port runs on the card) or ``"cpu"``, where every
       kernel wrapper computes with its plain PyTorch version,
-    * ``threads_per_block`` — CUDA block size of every kernel launch
-      (one thread per packed word),
+    * ``threads_per_block`` — CUDA block size of the per-word kernel
+      launches (the megakernel's launch planner picks its own),
     * ``subarray_cols`` — behavioural-sim row width (bits),
     * ``seed`` — stable-mask RNG seed: the chip / row-group identity.
     """

@@ -15,9 +15,10 @@ the program becomes at most one MAJX launch (mixed arities padded with
 constant 0/1 plane pairs, an exact identity) plus at most one fan-out
 launch, while NOT/COPY levels are plain gather/scatter with no kernel.
 ``run_fused(mode="megakernel")`` lowers the whole schedule to static
-level tables (:mod:`repro_torch.compile.megakernel`) that ONE launch
-executes end-to-end.  ``self.dispatch_count`` counts launches, and each
-accrues :data:`repro_torch.core.costmodel.COST`-priced energy (launch
+level tables (:mod:`repro_torch.compile.megakernel`) whose execution
+plan (the live slots only) ONE launch executes end-to-end.
+``self.dispatch_count`` counts launches, and each accrues
+:data:`repro_torch.core.costmodel.COST`-priced energy (launch
 round-trip at board power + device-memory traffic).
 
 §8.1 arithmetic (:meth:`elementwise`) takes the fused path: the gate
@@ -43,6 +44,7 @@ from repro_torch.core.costmodel import COST
 from repro_torch.kernels.bitserial import ops as bitserial_ops
 from repro_torch.kernels.majx import ops as majx_ops
 from repro_torch.kernels.megakernel import ops as mega_ops
+from repro_torch.kernels.megakernel.plan import plan_for
 from repro_torch.kernels.mismatch import ops as mismatch_ops
 from repro_torch.kernels.rowcopy import ops as rowcopy_ops
 from repro_torch.pud.isa import Program
@@ -53,8 +55,9 @@ class CudaBackend(Backend):
 
     def __init__(self, ctx=None):
         super().__init__(ctx)
-        #: Level tables on ``self.device``, by ``MegaLowering.digest()``:
-        #: each lowering is uploaded once, not once per run.
+        #: Execution plans on ``self.device``, by their key (derived from
+        #: ``MegaLowering.digest()``): each lowering is planned, hashed
+        #: and uploaded once, not once per run.
         self._tables: dict[str, mega_ops.DeviceTables] = {}
 
     def capabilities(self) -> Capabilities:
@@ -167,7 +170,7 @@ class CudaBackend(Backend):
         state = self.words(state)
         if lowering.n_levels == 0 or lowering.w_max == 0:
             return state.clone()
-        key = lowering.digest()
+        key = plan_for(lowering).key     # the digest, once per lowering
         tables = self._tables.get(key)
         if tables is None:
             tables = mega_ops.upload_tables(lowering, self.device)
@@ -175,8 +178,7 @@ class CudaBackend(Backend):
         rows, words = state.shape
         self._launch(2 * rows * words * 4)  # image in + image out
         return mega_ops.run_lowering(lowering, state.contiguous(),
-                                     tables=tables,
-                                     threads=self.ctx.threads_per_block)
+                                     tables=tables)
 
     def _exec_group(self, group, entry: torch.Tensor):
         """One group's writes, ``(dst row index, values)``, computed

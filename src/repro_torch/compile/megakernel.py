@@ -43,8 +43,8 @@ content (never on the height of the state it later runs against):
 This module is a copy of the reference package's lowering, so the
 tables and their :meth:`MegaLowering.digest` are byte-identical to it.
 :func:`plan_vmem` is kept for that parity (it plans the reference's TPU
-column blocks); the CUDA megakernel does not use it, because one thread
-owns one word column and needs no column blocking.
+column blocks); the CUDA megakernel plans its own launch from the
+tables' execution plan (:mod:`repro_torch.kernels.megakernel.plan`).
 """
 
 from __future__ import annotations

@@ -4,16 +4,20 @@
 // Counterpart of _csa_accumulate / _ge_threshold in
 // src/repro/kernels/majx/kernel.py.  A word holds 32 independent
 // bitlines, so one vote over N operand words is a carry-save counter of
-// ceil(log2(N+1)) digit words (digit i holds bit i of every bitline's
+// digits_for(N) digit words (digit i holds bit i of every bitline's
 // count), then a magnitude comparison of the counter against the
-// threshold (N+1)/2, both in AND/XOR/OR only: 32 bitlines per
-// instruction, the same bulk geometry as the DRAM subarray.
+// threshold N / 2 + 1 (strict majority; (N + 1) / 2 for odd N), both in
+// AND/XOR/OR only: 32 bitlines per instruction, the same bulk geometry
+// as the DRAM subarray.
 //
-// The digits live in a fixed register array.  Loops run over the full
-// array with the live-digit count as a predicate, so every index is a
-// compile-time constant after unrolling and the array never spills to
-// local memory.
+// Counter<D, W> holds D digits of W, one word (uint32_t) or four
+// (uint4, for 16-byte loads).  D is a compile-time constant, so every
+// loop unrolls to exactly D steps, the digits live in registers, and a
+// vote costs 2 * D logic operations an operand; with_digits() maps a
+// run-time digit count to the smallest instantiated D that holds it.
 #pragma once
+
+#include <cuda_runtime.h>
 
 #include <cstdint>
 
@@ -33,46 +37,89 @@ __host__ __device__ inline int digits_for(long long n) {
   return d;
 }
 
-struct Counter {
-  uint32_t d[kMaxDigits];
+// Logic on four words at once, so one template serves both widths.
+__device__ __forceinline__ uint4 operator&(uint4 a, uint4 b) {
+  return make_uint4(a.x & b.x, a.y & b.y, a.z & b.z, a.w & b.w);
+}
+__device__ __forceinline__ uint4 operator|(uint4 a, uint4 b) {
+  return make_uint4(a.x | b.x, a.y | b.y, a.z | b.z, a.w | b.w);
+}
+__device__ __forceinline__ uint4 operator^(uint4 a, uint4 b) {
+  return make_uint4(a.x ^ b.x, a.y ^ b.y, a.z ^ b.z, a.w ^ b.w);
+}
+__device__ __forceinline__ uint4 operator~(uint4 a) {
+  return make_uint4(~a.x, ~a.y, ~a.z, ~a.w);
+}
 
-  __device__ inline void clear() {
+template <typename W>
+__device__ __forceinline__ W splat(uint32_t v);
+template <>
+__device__ __forceinline__ uint32_t splat<uint32_t>(uint32_t v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ uint4 splat<uint4>(uint32_t v) {
+  return make_uint4(v, v, v, v);
+}
+
+template <int D, typename W = uint32_t>
+struct Counter {
+  W d[D];
+
+  __device__ __forceinline__ void clear() {
 #pragma unroll
-    for (int i = 0; i < kMaxDigits; ++i) d[i] = 0u;
+    for (int i = 0; i < D; ++i) d[i] = splat<W>(0u);
   }
 
-  // Add one operand word to every bitline's count (ripple carry).
-  // n_digits = digits_for(N) holds any count <= N, so no carry leaves
-  // the top digit.
-  __device__ inline void add(uint32_t w, int n_digits) {
-    uint32_t carry = w;
+  // Add one operand word to every bitline's count (ripple carry).  D
+  // digits hold any count below 2^D, so no carry leaves the top digit.
+  __device__ __forceinline__ void add(W w) {
+    W carry = w;
 #pragma unroll
-    for (int i = 0; i < kMaxDigits; ++i) {
-      if (i < n_digits) {
-        const uint32_t next = d[i] & carry;
-        d[i] ^= carry;
-        carry = next;
-      }
+    for (int i = 0; i < D; ++i) {
+      const W next = d[i] & carry;
+      d[i] = d[i] ^ carry;
+      carry = next;
     }
   }
 
-  // Bitwise (count >= thresh), scanning the digits MSB first with
-  // greater-so-far / equal-so-far accumulators.
-  __device__ inline uint32_t ge(unsigned thresh, int n_digits) const {
-    uint32_t gt = 0u, eq = 0xFFFFFFFFu;
+  // Bitwise (count >= thresh), MSB first with greater-so-far /
+  // equal-so-far accumulators; branch-free, since thresh may differ
+  // between the threads of a warp (the megakernel's slots).
+  __device__ __forceinline__ W ge(unsigned thresh) const {
+    W gt = splat<W>(0u), eq = splat<W>(0xFFFFFFFFu);
 #pragma unroll
-    for (int i = kMaxDigits - 1; i >= 0; --i) {
-      if (i < n_digits) {
-        if ((thresh >> i) & 1u) {
-          eq &= d[i];
-        } else {
-          gt |= eq & d[i];
-          eq &= ~d[i];
-        }
-      }
+    for (int i = D - 1; i >= 0; --i) {
+      const W bit = splat<W>(0u - ((thresh >> i) & 1u));
+      gt = gt | (eq & d[i] & ~bit);
+      eq = eq & ~(d[i] ^ bit);
     }
     return gt | eq;
   }
 };
+
+// Calls f.template operator()<D>() with the smallest instantiated digit
+// count D >= n_digits (1..6 exactly, then 10, then kMaxDigits).
+template <typename F>
+inline int with_digits(int n_digits, F&& f) {
+  switch (n_digits) {
+    case 0:
+    case 1:
+      return f.template operator()<1>();
+    case 2:
+      return f.template operator()<2>();
+    case 3:
+      return f.template operator()<3>();
+    case 4:
+      return f.template operator()<4>();
+    case 5:
+      return f.template operator()<5>();
+    case 6:
+      return f.template operator()<6>();
+    default:
+      if (n_digits <= 10) return f.template operator()<10>();
+      return f.template operator()<kMaxDigits>();
+  }
+}
 
 }  // namespace bitslice

@@ -18,9 +18,10 @@ Every wrapper in :mod:`repro_torch.kernels` goes through this module:
 * :func:`blocks_for` is the launch geometry: one thread per output
   word, ``threads`` a block, a grid-stride loop beyond the grid limit.
   Kernels mask the ragged edge themselves, so no input is padded;
-* :func:`kernel` returns the bound C entry point, and :func:`run`
-  launches it on the tensor's device and current stream, raising on a
-  non-zero ``cudaError_t`` returned right after the launch.
+* :func:`kernel` returns the C entry point, bound once, and :func:`run`
+  launches it on the tensor's device (entered only when it is not the
+  current one) and current stream, raising on a non-zero ``cudaError_t``
+  returned right after the launch.
 """
 
 from __future__ import annotations
@@ -120,14 +121,22 @@ def _library(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(path))
 
 
+#: Bound entry points by (library, function): ``argtypes`` are set once.
+_ENTRIES: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+
+
 def kernel(name: str, fn: str, argtypes: list) -> ctypes._CFuncPtr:
-    """The C entry point ``fn`` of ``csrc/<name>.cu``, built on first use.
+    """The C entry point ``fn`` of ``csrc/<name>.cu``, built on first use
+    and bound once (``argtypes`` of later calls are not read again).
 
     Every entry point returns the ``cudaError_t`` of its launch.
     """
-    f = getattr(_library(name), fn)
-    f.argtypes = argtypes
-    f.restype = ctypes.c_int
+    f = _ENTRIES.get((name, fn))
+    if f is None:
+        f = getattr(_library(name), fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+        _ENTRIES[(name, fn)] = f
     return f
 
 
@@ -163,11 +172,16 @@ def run(f: ctypes._CFuncPtr, what: str, device: torch.device,
         *args) -> None:
     """Launch ``f(*args, stream)`` on ``device``'s current stream.
 
-    Raises when the launch returns a CUDA error code.  The launch is
-    asynchronous: a fault while the kernel runs shows at the next
-    synchronisation.
+    The CUDA runtime launches on its current device, so ``device`` is
+    made current only when it is not already.  Raises when the launch
+    returns a CUDA error code.  The launch is asynchronous: a fault while
+    the kernel runs shows at the next synchronisation.
     """
-    with torch.cuda.device(device):
-        err = f(*args, VOID_P(torch.cuda.current_stream().cuda_stream))
+    index = device.index
+    if index is None or index == torch.cuda.current_device():
+        err = f(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = f(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")

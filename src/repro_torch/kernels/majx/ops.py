@@ -17,7 +17,7 @@ from repro_torch.kernels.majx.ref import majx_ref
 launches = 0
 
 _ARGS = [launch.VOID_P, launch.VOID_P, launch.I64, launch.I32, launch.I64,
-         launch.I32, launch.I32, launch.VOID_P]
+         launch.I32, launch.I32, launch.I32, launch.VOID_P]
 
 
 def majx_batch(planes: torch.Tensor, *, threads: int = 256) -> torch.Tensor:
@@ -35,10 +35,14 @@ def majx_batch(planes: torch.Tensor, *, threads: int = 256) -> torch.Tensor:
     out = torch.empty((b, *planes.shape[2:]), dtype=torch.int32,
                       device=planes.device)
     words = out[0].numel() if b else 0
+    # Four words a thread (16-byte loads) where the layout allows it.
+    vec = words % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                 for t in (planes, out))
     fn = launch.kernel("majx", "majx_launch", _ARGS)
     launch.run(fn, "majx", planes.device, planes.data_ptr(),
-               out.data_ptr(), b, n, words,
-               launch.blocks_for(b * words, threads), threads)
+               out.data_ptr(), b, n, words, int(vec),
+               launch.blocks_for(b * words // (4 if vec else 1), threads),
+               threads)
     launches += 1
     return out
 

@@ -1,10 +1,11 @@
 """Host-side wrapper: run a MegaLowering against a bit-plane image.
 
-:func:`run_lowering` builds the augmented image (three constant rows in
-front of the program rows, see :mod:`repro_torch.compile.megakernel`),
-launches ``csrc/megakernel.cu`` exactly once on it, and returns the
-program rows.  On a CPU image it computes the same result with
-:func:`~repro_torch.kernels.megakernel.ref.schedule_exec_ref`.
+:func:`run_lowering` validates the tables against the image, takes the
+lowering's execution plan (:mod:`repro_torch.kernels.megakernel.plan`:
+the live slots, hazard slots marked), and launches ``csrc/megakernel.cu``
+exactly once on it, in the regime :func:`~repro_torch.kernels.megakernel.
+plan.plan_launch` picks from the shapes.  On a CPU image it walks the
+same plan with :func:`~repro_torch.kernels.megakernel.plan.exec_plan_ref`.
 ``launches`` counts kernel launches, and nothing else.
 """
 
@@ -19,41 +20,51 @@ from repro_torch.compile.megakernel import (MegaLowering, N_CONST_ROWS,
                                             ONE_ROW)
 from repro_torch.core import bitplanes as bp
 from repro_torch.kernels import launch
-from repro_torch.kernels.megakernel.ref import schedule_exec_ref
+from repro_torch.kernels.megakernel.plan import (ExecPlan, exec_plan_ref,
+                                                 plan_for, plan_launch)
 
 #: Kernel launches made by this module since the count was last zeroed.
 launches = 0
 
-_ARGS = [launch.VOID_P] * 5 + [launch.I32] * 3 + [launch.I64, launch.I32,
-                                                  launch.I32, launch.VOID_P]
+_ARGS = ([launch.VOID_P] * 6 + [launch.I32] * 2 + [launch.I64]
+         + [launch.I32] * 10 + [launch.VOID_P])
 
 
 @dataclasses.dataclass(frozen=True)
 class DeviceTables:
-    """A lowering's three level tables as int32 tensors on one device."""
+    """A lowering's execution plan, and its arrays on one device."""
 
-    src: torch.Tensor
-    dst: torch.Tensor
-    inv: torch.Tensor
+    plan: ExecPlan
+    chunks: torch.Tensor     # (n_chunks, 8) int32
+    levels: torch.Tensor     # (n_levels, 4) int32
+    slots: torch.Tensor      # (n_slots, 4) int32
+    operands: torch.Tensor   # (n_operands,) int32
 
 
 def upload_tables(lowering: MegaLowering, device) -> DeviceTables:
-    """Copy a lowering's tables to ``device`` (once per lowering: the
-    ``cuda`` backend caches the result by :meth:`MegaLowering.digest`)."""
+    """Plan ``lowering`` and copy the plan to ``device`` (once per
+    lowering: the ``cuda`` backend caches the result by
+    :meth:`MegaLowering.digest`)."""
+    plan = plan_for(lowering)
+
     def put(a):
-        return torch.as_tensor(a.astype("int32"), device=device).contiguous()
-    return DeviceTables(put(lowering.src), put(lowering.dst),
-                        put(lowering.inv))
+        return torch.as_tensor(a, dtype=torch.int32,
+                               device=device).contiguous()
+    return DeviceTables(plan, put(plan.chunks), put(plan.level_records()),
+                        put(plan.slot_records()), put(plan.operands))
 
 
 def run_lowering(lowering: MegaLowering, state: torch.Tensor, *,
                  tables: Optional[DeviceTables] = None,
-                 threads: int = 256) -> torch.Tensor:
+                 regime: Optional[str] = None) -> torch.Tensor:
     """Execute lowered level tables on a (rows, words) int32 image.
 
     One kernel launch regardless of level count.  Rows beyond what the
     lowering addresses ride along untouched; an empty lowering is the
     identity (a copy, no launch).  The caller's tensor is never written.
+    ``regime`` overrides the launch planner's choice (:func:`~repro_torch.
+    kernels.megakernel.plan.plan_launch`); a forced regime that does not
+    fit raises, it is never swapped.
     """
     global launches
     launch.check_words("megakernel", state, min_ndim=2)
@@ -67,27 +78,47 @@ def run_lowering(lowering: MegaLowering, state: torch.Tensor, *,
         raise ValueError(
             f"lowering addresses {lowering.n_rows} rows but state has "
             f"only {rows}")
-    for name, table in (("src", lowering.src), ("dst", lowering.dst)):
-        if table.min() < 0 or table.max() >= rows + N_CONST_ROWS:
+    # The plan, built once per lowering, carries the tables' row range:
+    # a run does not read the padded tables again.
+    plan = plan_for(lowering)
+    for name, (lo, hi) in plan.table_rows.items():
+        if lo < 0 or hi >= rows + N_CONST_ROWS:
             raise ValueError(f"lowering {name} table indexes outside the "
                              f"{rows + N_CONST_ROWS}-row augmented image")
     if launch.on_cpu(state):
-        return schedule_exec_ref(lowering, state)
+        return exec_plan_ref(plan, state)
 
     if tables is None:
         tables = upload_tables(lowering, state.device)
-    image = torch.empty((rows + N_CONST_ROWS, words), dtype=torch.int32,
-                        device=state.device)
-    image[:N_CONST_ROWS] = 0
-    image[ONE_ROW] = bp.ONES
-    image[N_CONST_ROWS:] = state
-    scratch = torch.empty((lowering.w_max, words), dtype=torch.int32,
-                          device=state.device)
+    plan = tables.plan
+    lp = plan_launch(plan, rows, words, regime=regime)
+    if lp.regime == "resident":
+        out = torch.empty_like(state)
+        src, result = state, out
+    else:
+        image = torch.empty((rows + N_CONST_ROWS, words), dtype=torch.int32,
+                            device=state.device)
+        image[:N_CONST_ROWS] = 0
+        image[ONE_ROW] = bp.ONES
+        image[N_CONST_ROWS:] = state
+        src, result, out = None, image, image[N_CONST_ROWS:]
+    # Four columns an item (16-byte accesses) where the layout allows.
+    vec = (words % 4 == 0 and lp.strip % 4 == 0
+           and all(t.data_ptr() % 16 == 0
+                   for t in (src, result) if t is not None))
+    # The stage follows the image strip and the held votes, 16-byte
+    # aligned (plan.py, _smem).
+    stage_levels, stage_slots, _ = plan.stage
+    stage = (lp.smem_bytes - plan.stage_bytes) // 4
     fn = launch.kernel("megakernel", "megakernel_launch", _ARGS)
-    launch.run(fn, "megakernel", state.device, image.data_ptr(),
-               scratch.data_ptr(), tables.src.data_ptr(),
-               tables.dst.data_ptr(), tables.inv.data_ptr(),
-               lowering.n_levels, lowering.w_max, lowering.x_max, words,
-               launch.blocks_for(words, threads), threads)
+    launch.run(fn, "megakernel", state.device,
+               src.data_ptr() if src is not None else None,
+               result.data_ptr(), tables.chunks.data_ptr(),
+               tables.levels.data_ptr(), tables.slots.data_ptr(),
+               tables.operands.data_ptr(), len(plan.chunks),
+               rows + N_CONST_ROWS, words, plan.max_arity,
+               int(lp.regime == "resident"), lp.strip, int(vec),
+               lp.smem_bytes, stage, stage_levels, stage_slots, lp.blocks,
+               lp.threads)
     launches += 1
-    return image[N_CONST_ROWS:]
+    return out

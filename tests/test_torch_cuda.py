@@ -62,6 +62,23 @@ def test_majx_kernel_matches_plain(cuda_device, n, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", list(range(1, 34, 2)) + [63])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+def test_majx_kernel_any_odd_arity(cuda_device, n, offset):
+    """Odd N from 1 to 33 and 63 (ragged last group of eight planes);
+    ``offset`` 1 starts the planes one word into their storage, which
+    takes the single-word path, as does the odd word count of the
+    second shape."""
+    for words in (4096, 1001):
+        flat = _words(n + words, n * words + offset, device=cuda_device)
+        planes = flat[offset:].view(n, words)
+        before = majx_ops.launches
+        got = majx_ops.majx(planes)
+        assert majx_ops.launches == before + 1
+        assert torch.equal(got, majx_ops.majx_ref(planes))
+
+
+@pytest.mark.cuda
 def test_majx_batch_kernel_is_one_launch(cuda_device):
     planes = _words(1, 3, 5, 2, 777, device=cuda_device)
     before = majx_ops.launches
@@ -104,6 +121,89 @@ def test_megakernel_matches_plain_on_goldens(cuda_device, path):
     got = mega_ops.run_lowering(low, state)
     assert mega_ops.launches == before + 1
     assert torch.equal(got, schedule_exec_ref(low, state))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", ["resident", "streaming"])
+@pytest.mark.parametrize("words", [1, 31, 33, 2048, 2**18 + 3])
+def test_megakernel_regimes_match_plain_on_add32(cuda_device, regime,
+                                                  words):
+    with open(os.path.join(GOLDEN_DIR, "add32.json")) as f:
+        doc = json.load(f)
+    low = lower_schedule(build_schedule(interop.program_from_json(
+        json.dumps(doc["ops"]))))
+    state = _words(words, doc["rows"], words, device=cuda_device)
+    before = mega_ops.launches
+    got = mega_ops.run_lowering(low, state, regime=regime)
+    assert mega_ops.launches == before + 1
+    assert torch.equal(got, schedule_exec_ref(low, state))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", ["resident", "streaming"])
+@pytest.mark.parametrize("words", [100, 1001, 2100])
+def test_megakernel_regimes_match_plain_on_hazard_programs(cuda_device,
+                                                           regime, words):
+    """Random hazard-heavy Programs (swaps, rewrites, aliasing) in both
+    regimes, at word counts whose strips leave a ragged edge: resident
+    128 columns a block, streaming 1, 8 and 32 (16-byte accesses where
+    the word count and the strip are multiples of 4)."""
+    rng = np.random.default_rng(0x4A2)
+    for i in range(8):
+        prog = _rand_program(rng)
+        low = lower_schedule(build_schedule(prog))
+        if low.n_levels == 0:
+            continue
+        state = _words(i, 20, words, device=cuda_device)
+        got = mega_ops.run_lowering(low, state, regime=regime)
+        assert torch.equal(got, schedule_exec_ref(low, state))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", ["resident", "streaming"])
+def test_megakernel_level_too_wide_to_stage(cuda_device, regime):
+    """One Multi-RowCopy level of 600 destinations: more slot records
+    than the kernel stages in shared memory, so that level's tables are
+    read from device memory, between two staged chunks."""
+    from repro_torch.kernels.megakernel.plan import STAGE_SLOTS, plan_for
+
+    fan = STAGE_SLOTS + 88
+    prog = Program()
+    prog.emit("MAJ", x=3, n_act=4, srcs=(0, 1, 2), dsts=(3,))
+    prog.emit("MRC", n_act=8, srcs=(3,), dsts=tuple(range(4, 4 + fan)))
+    prog.emit("NOT", srcs=(4 + fan // 2,), dsts=(0,))
+    low = lower_schedule(build_schedule(prog))
+    assert plan_for(low).chunks[:, 6].tolist() == [1, 0, 1]
+    state = _words(fan, 4 + fan, 77, device=cuda_device)
+    got = mega_ops.run_lowering(low, state, regime=regime)
+    assert torch.equal(got, schedule_exec_ref(low, state))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [7200, 7300])
+def test_megakernel_either_side_of_the_shared_memory_limit(cuda_device,
+                                                           rows):
+    """A strip of 8 columns of a 7,203-row augmented image fits in 227 KB
+    of shared memory, one of 7,303 rows does not.  The planner streams
+    both (too few columns an SM to stay resident); a forced resident
+    launch runs at 7,200 rows and raises at 7,300 before launching."""
+    from repro_torch.kernels.megakernel.plan import plan_for, plan_launch
+
+    rng = np.random.default_rng(rows)
+    prog = _rand_program(rng, rows=rows, n_ops=40)
+    low = lower_schedule(build_schedule(prog))
+    state = _words(rows, rows, 40, device=cuda_device)
+    assert plan_launch(plan_for(low), rows, 40).regime == "streaming"
+    want = schedule_exec_ref(low, state)
+    for regime in (None, "streaming") + (("resident",) if rows == 7200
+                                         else ()):
+        assert torch.equal(mega_ops.run_lowering(low, state, regime=regime),
+                           want)
+    if rows == 7300:
+        before = mega_ops.launches
+        with pytest.raises(ValueError, match="shared memory"):
+            mega_ops.run_lowering(low, state, regime="resident")
+        assert mega_ops.launches == before
 
 
 def _rand_program(rng, rows: int = 20, n_ops: int = 12) -> Program:
