@@ -12,7 +12,11 @@ what came out with the success-rate counter (the mismatch kernel).  The
 third is §8.1 arithmetic: ``DramSession().elementwise`` traces a
 bit-serial gate stream into a Program and runs it fused (or as one
 megakernel launch), and ``add_planes`` runs the bulk bit-serial adder.
-Phases, one JSON line each:
+The fourth is the multi-tenant service: ``PudService()`` batches heal,
+erase and integrity requests into fused Programs over a pool of
+sessions.  The fifth is the TMR checkpoint store, which votes replicas
+of a tree on the card with the MAJX kernel.  Phases, one JSON line
+each:
 
 1. build — compile the CUDA kernels of ``src/repro_torch/csrc`` with
    nvcc (all sources at once) and print the card's name and power limit;
@@ -41,11 +45,29 @@ Phases, one JSON line each:
    verdict; all seven ops at tiers 3/5/7/9 at 2048 words (one 8 KiB
    rank row); ``add_planes`` at full width; the add8/16/32 goldens
    re-traced; then ``add_u32`` at 2**23 elements;
-6. the kernels line, then ``{"ok": true, ...}`` as the last line.
+6. serve — ``PudService()`` (the card, ideal context, two sessions)
+   serves one tick of 16 heals (3 replicas x 8 rows), 16 erases (31
+   rows, fan-out 31) and 16 integrity checks (8 rows) at 2**18 words a
+   row, coalesced (1 MAJX + 1 fan-out + 32 mismatch launches a round)
+   and sequential (16 + 16 + 32): a warm-up round, ``reset_slo()``, two
+   timed rounds each, then six requests through ``start`` / ``submit``
+   / ``stop``; every result is checked against the planted flips, and
+   the SLO snapshot (throughput, p50/p99, batches, occupancy,
+   dispatches, energy, cache window) is printed per mode;
+   ``python -m repro_torch.analyze --golden --serve --mutate
+   --cache-check`` must pass; then a coalesced heal tick is split into
+   image build, upload, fused run, MAJX launch and mismatch launches;
+7. tmr_ckpt — ``ckpt.tmr_store`` saves a tree on the card (bf16
+   4096 x 4096, f32 2048 x 4096, int8 1000 x 333, a nested dict and a
+   list) three times, one replica's data is corrupted, and
+   ``restore(use_kernel=True)`` must return the clean tree on the card
+   with one MAJX launch a leaf; ``scrub`` rewrites the bad replica;
+8. the kernels line, then ``{"ok": true, ...}`` as the last line.
 
-Every kernel's launch count is zeroed just before phases 3, 4 and 5 and
-read just after each: the launches must add up to the backend's
-dispatches, and every kernel of the phase's path must have launched.
+Every kernel's launch count is zeroed just before phases 3-7 and read
+just after each: the launches must add up to the backend's dispatches
+(the store's: one MAJX launch a leaf), and every kernel of the phase's
+path must have launched.
 Any failed check raises, so the script exits non-zero and prints no
 result.  It needs ``torch.cuda.is_available()`` and the repository's
 ``src/`` and ``tests/golden/`` beside it.
@@ -53,8 +75,11 @@ result.  It needs ``torch.cuda.is_available()`` and the repository's
 
 from __future__ import annotations
 
+import asyncio
+import contextlib
 import dataclasses
 import glob
+import io
 import json
 import os
 import statistics
@@ -952,6 +977,439 @@ def phase_arith(torch, kernel_mods, timer=None) -> dict:
     return launches
 
 
+def new_service(**cfg):
+    """A ``PudService`` with the user's defaults (the ``cuda`` backend on
+    the card, ideal context) or, for a CPU rehearsal, on ``DEVICE``."""
+    from repro_torch.backends import ExecutionContext
+    from repro_torch.serve import PudService, ServiceConfig
+
+    if DEVICE != "cuda":
+        cfg["ctx"] = ExecutionContext(ideal=True, device=DEVICE)
+    return PudService(ServiceConfig(**cfg))
+
+
+SERVE_N = 16             # requests of each kind in one tick
+SERVE_ROWS = 8           # rows of a heal / verify tile
+SERVE_ERASE_ROWS = 31    # rows of an erase: one wave of fan-out 31
+SERVE_PATTERN = 0xDEADBEEF
+
+
+def serve_mix(rng):
+    """The reference serve bench's mix (``benchmarks/serve_bench.py``) at
+    the bank width, plus integrity checks: a function making fresh
+    requests over the same tiles (requests are stamped at admission), and
+    what each must return.  Heal ``i`` flips ``SERVE_N + i`` bits of
+    replica ``i % 3`` at positions no other replica flips; check ``i``
+    differs from its reference in ``3 * i + 1`` bits."""
+    from repro_torch import serve
+
+    n_bits = SERVE_ROWS * WORDS * 32
+    heals, verifies = [], []
+    for i in range(SERVE_N):
+        clean = rng.integers(0, 2**32, (SERVE_ROWS, WORDS), dtype=np.uint32)
+        flips = rng.choice(n_bits, SERVE_N + i, replace=False)
+        reps = [clean] * 3
+        reps[i % 3] = flip_bits(clean, flips)
+        heals.append((np.stack(reps), clean,
+                      len(flips) if i % 3 == 0 else 0))
+        live = rng.integers(0, 2**32, (SERVE_ROWS, WORDS), dtype=np.uint32)
+        ref = flip_bits(live, rng.choice(n_bits, 3 * i + 1, replace=False))
+        verifies.append((live, ref, 3 * i + 1))
+
+    def make(which=range(SERVE_N)):
+        reqs = []
+        for i in which:
+            reqs.append(serve.HealRequest(replicas=heals[i][0],
+                                          tenant=f"heal{i}"))
+            reqs.append(serve.EraseRequest(
+                rows=SERVE_ERASE_ROWS, words=WORDS, pattern=SERVE_PATTERN,
+                fanout=31, tenant=f"erase{i}"))
+            reqs.append(serve.IntegrityRequest(
+                live=verifies[i][0], reference=verifies[i][1],
+                tenant=f"verify{i}"))
+        return reqs
+
+    return make, heals, verifies
+
+
+def check_serve_results(torch, results, heals, verifies, which, what):
+    """Every result of one round (``make(which)``'s order) against what
+    its tiles must give."""
+    from repro_torch.core import bitplanes as bp
+    from repro_torch.core.bitplanes import from_u32
+
+    pattern = int(bp.wrap_i32(torch.tensor(SERVE_PATTERN)))
+    for i, (heal, erase, verify) in zip(which, zip(*[iter(results)] * 3)):
+        clean = from_u32(heals[i][1], DEVICE)
+        check(heal.healed.device == clean.device and torch.equal(
+            heal.healed, clean), f"{what}: heal {i} != the clean rows")
+        check(heal.fixed_bits == heals[i][2],
+              f"{what}: heal {i} fixed {heal.fixed_bits} bits, want "
+              f"{heals[i][2]}")
+        check(tuple(erase.wiped.shape) == (SERVE_ERASE_ROWS, WORDS) and
+              bool((erase.wiped == pattern).all()),
+              f"{what}: erase {i} left rows that are not the pattern")
+        check(verify.mismatch_bits == verifies[i][2],
+              f"{what}: check {i} counted {verify.mismatch_bits} bits, "
+              f"want {verifies[i][2]}")
+
+
+def phase_serve(torch, kernel_mods, timer=None) -> dict:
+    """The multi-tenant service on the card: one tick of 16 heals, 16
+    erases and 16 integrity checks at 2**18 words a row, coalesced and
+    sequential, sync and async; returns each kernel's launches.  With a
+    :class:`Timer`, the coalesced heal tick is split afterwards, outside
+    the counted window: image build, upload, the fused vote, and the
+    mismatch launches."""
+    from repro_torch.analyze.__main__ import main as analyze_main
+
+    rng = np.random.default_rng(3)
+    t0 = time.perf_counter()
+    make, heals, verifies = serve_mix(rng)
+    emit({"phase": "serve", "mix": {
+        "heal": [SERVE_N, 3, SERVE_ROWS, WORDS],
+        "erase": [SERVE_N, SERVE_ERASE_ROWS, WORDS, 31],
+        "verify": [SERVE_N, SERVE_ROWS, WORDS]},
+        "heal_image_mib": 4 * SERVE_N * SERVE_ROWS * WORDS * 4 / 2**20,
+        "erase_image_mib": (SERVE_N * SERVE_ERASE_ROWS + 1) * WORDS * 4
+        / 2**20, "make_s": time.perf_counter() - t0})
+
+    # Launches a round, as the reference's pallas backend dispatches them.
+    want = {True: {"majx": 1, "fanout": 1, "megakernel": 0,
+                   "mismatch": 2 * SERVE_N, "bitserial": 0},
+            False: {"majx": SERVE_N, "fanout": SERVE_N, "megakernel": 0,
+                    "mismatch": 2 * SERVE_N, "bitserial": 0}}
+    zero_launches(kernel_mods)
+    dispatches = 0
+    results = {}
+    for coalesce in (True, False):
+        mode = "coalesced" if coalesce else "sequential"
+        svc = new_service(pool_size=2, max_batch=3 * SERVE_N,
+                          queue_depth=12 * SERVE_N, tick_window_s=0.0,
+                          coalesce=coalesce)
+        kinds, walls = [], []   # each batch's kind and wall
+        execute, record = svc.batcher.execute, svc.slo.record_batch
+
+        def execute_kind(plan, session, _execute=execute):
+            kinds.append(plan.kind)
+            return _execute(plan, session)
+
+        def record_batch(n, wall, *args, _record=record, **kw):
+            walls.append(wall)
+            return _record(n, wall, *args, **kw)
+
+        svc.batcher.execute = execute_kind
+        svc.slo.record_batch = record_batch
+        t0 = time.perf_counter()
+        warm = svc.serve(make())
+        warm_s = time.perf_counter() - t0
+        check_serve_results(torch, warm, heals, verifies, range(SERVE_N),
+                            f"{mode}/warm-up")
+        check(svc.cache.stats.misses == 2, f"{mode}: warm-up compiled "
+              f"{svc.cache.stats.misses} tick shapes, want 2")
+        svc.reset_slo()
+        del kinds[:], walls[:]
+        rounds = []
+        for r in range(2):
+            before = {n: m.launches for n, m in kernel_mods.items()}
+            t0 = time.perf_counter()
+            with contextlib.ExitStack() as stack:
+                scopes = [stack.enter_context(s.count_dispatches())
+                          for s in svc.sessions]
+                out = svc.serve(make())
+            rounds.append(time.perf_counter() - t0)
+            launched = {n: m.launches - before[n]
+                        for n, m in kernel_mods.items()}
+            n_disp = sum(sc.count for sc in scopes)
+            check(n_disp == sum(want[coalesce].values()),
+                  f"{mode}: round {r} dispatched {n_disp}")
+            check(DEVICE != "cuda" or launched == want[coalesce],
+                  f"{mode}: round {r} launched {launched}, want "
+                  f"{want[coalesce]}")
+            check_serve_results(torch, out, heals, verifies, range(SERVE_N),
+                                f"{mode}/round {r}")
+            results.setdefault(mode, out)
+        snap = svc.snapshot()
+        check(snap.completed == 2 * 3 * SERVE_N and snap.shed == 0
+              and snap.rejected == 0, f"{mode}: snapshot {snap}")
+        check(snap.cache["misses"] == 0 and snap.cache["hits"] > 0,
+              f"{mode}: after reset_slo the cache window is "
+              f"{snap.cache}, want hits only")
+        tick_s = {}
+        for kind, wall in zip(kinds, walls):
+            tick_s[kind] = tick_s.get(kind, 0.0) + wall / len(rounds)
+        emit({"phase": "serve", "mode": mode,
+              "throughput_rps": snap.throughput_rps,
+              "p50_ms": snap.p50_latency_s * 1e3,
+              "p99_ms": snap.p99_latency_s * 1e3,
+              "batches": snap.batches,
+              "occupancy": snap.batch_occupancy,
+              "dispatches": snap.dispatches,
+              "dispatches_per_round": snap.dispatches // 2,
+              "energy_nj_per_request": snap.energy_nj / snap.completed,
+              "cache": snap.cache, "round_s": rounds,
+              "warmup_s": warm_s, "batch_wall_s_per_round": tick_s,
+              "slow_sessions": snap.slow_sessions})
+        dispatches += sum(s.dispatch_count for s in svc.sessions)
+
+    for a, b in zip(results["coalesced"], results["sequential"]):
+        for field in ("healed", "wiped"):
+            if hasattr(a, field):
+                check(torch.equal(getattr(a, field), getattr(b, field)),
+                      f"coalesced and sequential {field} differ")
+
+    # Async: start, six submissions gathered, stop.
+    svc = new_service(pool_size=2, max_batch=3 * SERVE_N,
+                      queue_depth=12 * SERVE_N)
+
+    async def client(reqs):
+        await svc.start()
+        out = await asyncio.gather(*(svc.submit(r) for r in reqs))
+        await svc.stop()
+        return out
+
+    which = (0, 5)
+    t0 = time.perf_counter()
+    out = asyncio.run(client(make(which)))
+    check_serve_results(torch, out, heals, verifies, which, "async")
+    check(svc.backlog == 0 and svc.snapshot().completed == 6,
+          "async: the loop did not drain")
+    dispatches += sum(s.dispatch_count for s in svc.sessions)
+    emit({"phase": "serve", "mode": "async", "requests": 6,
+          "wall_s": time.perf_counter() - t0,
+          "batches": svc.snapshot().batches})
+    launches = read_launches(kernel_mods, ("majx", "fanout", "mismatch"),
+                             dispatches, "serve")
+
+    # The analyzer's CLI on the serve tick programs (and the goldens,
+    # the mutation gate and the cache check), from the repository root.
+    cwd = os.getcwd()
+    os.chdir(ROOT)
+    try:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = analyze_main(["--golden", "--serve", "--mutate",
+                               "--cache-check", "--device", DEVICE])
+    finally:
+        os.chdir(cwd)
+    lines = buf.getvalue().splitlines()
+    check(rc == 0 and any(ln.startswith("OK   serve/tick") for ln in lines),
+          "python -m repro_torch.analyze failed:\n" + "\n".join(lines))
+    emit({"phase": "serve", "analyze_rc": rc,
+          "analyze": [ln for ln in lines if "serve/" in ln or
+                      "analyze:" in ln]})
+    if timer is not None:
+        serve_split(torch, timer, make, kernel_mods)
+        serve_profile(torch, make)
+    return launches
+
+
+def serve_profile(torch, make) -> None:
+    """The card's busy share in one coalesced round, from a
+    ``torch.profiler`` trace: the device time of every kernel and copy
+    (one stream: they do not overlap) over the round's wall, which the
+    profiler itself lengthens.  Printed as not measured (null) when the
+    trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    svc = new_service(pool_size=2, max_batch=3 * SERVE_N,
+                      queue_depth=12 * SERVE_N)
+    svc.serve(make())                     # warm-up: compile, certify
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        svc.serve(make())
+        _sync(torch)
+        wall = time.perf_counter() - t0
+    device_us = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        device_us[e.key[:80]] = (us, e.count)
+    busy = sum(us for us, _ in device_us.values()) / 1e6
+    htod = sum(us for k, (us, _) in device_us.items()
+               if k.startswith("Memcpy HtoD")) / 1e6
+    # The images and tiles a round uploads: the heal and erase images,
+    # and both tiles of every check.
+    n_bytes = (4 * SERVE_N * SERVE_ROWS + SERVE_N * SERVE_ERASE_ROWS + 1
+               + 2 * SERVE_N * SERVE_ROWS) * WORDS * 4
+    top = sorted(device_us.items(), key=lambda kv: -kv[1][0])[:8]
+    emit({"phase": "serve", "profile": "one coalesced round",
+          "wall_s": wall, "device_busy_s": busy if busy else None,
+          "device_busy_share": busy / wall if busy else None,
+          "device_not_upload_s": busy - htod if busy else None,
+          "upload_bytes": n_bytes,
+          "upload_gb_per_s": n_bytes / htod / 1e9 if htod else None,
+          "top_device_us": {k: {"us": us, "count": n}
+                            for k, (us, n) in top}})
+
+
+def serve_split(torch, timer, make, kernel_mods) -> None:
+    """Where a coalesced heal tick's wall goes, each part alone: building
+    the program and its numpy image on the host, uploading the image,
+    the fused run (gather, one MAJX launch, scatter), the MAJX launch by
+    itself, and the mismatch launches (one a heal, each read back)."""
+    from repro_torch.core import calibration as cal
+    from repro_torch.core.bitplanes import from_u32
+    from repro_torch.kernels.majx import ops as majx_ops
+
+    reqs = [r for r in make() if r.kind == "heal"]
+    sess = new_session("smoke/serve-split")
+    x, total = 3, SERVE_N * SERVE_ROWS
+    build_s = {}
+    t0 = time.perf_counter()
+    tiles = [np.concatenate([r.replicas[j] for r in reqs])
+             for j in range(x)]
+    t1 = time.perf_counter()
+    build_s["concatenate"] = t1 - t0
+    b = sess.program(rows=(x + 1) * total, name="serve/heal-x3")
+    groups = [b.input(t) for t in tiles]
+    out = b.alloc_rows(total)
+    for r in range(total):
+        b.maj(*(g[r] for g in groups), dst=out[r],
+              n_act=cal.min_activation_for(32))
+    prog = b.build()
+    t0 = time.perf_counter()
+    build_s["program"] = t0 - t1
+    state = b.initial_state()
+    build_s["initial_state"] = time.perf_counter() - t0
+    del tiles
+    uploads = []
+    for _ in range(3):
+        _sync(torch)
+        t0 = time.perf_counter()
+        image = from_u32(state, DEVICE)
+        _sync(torch)
+        uploads.append(time.perf_counter() - t0)
+    del state
+    sess.run_fused(prog, image)     # first run: schedule, certificate
+    runs = []
+    for _ in range(3):
+        _sync(torch)
+        t0 = time.perf_counter()
+        final = sess.run_fused(prog, image)
+        _sync(torch)
+        runs.append(time.perf_counter() - t0)
+    planes = image[:x * total].reshape(x, total, WORDS)
+    vote_ms = timer(lambda: majx_ops.majx(planes), reps=5, warmup=1)
+    voted = final[x * total:]
+    rep0 = image[:total]
+    mism = []
+    for _ in range(3):
+        _sync(torch)
+        t0 = time.perf_counter()
+        for i in range(SERVE_N):
+            lo = i * SERVE_ROWS
+            int(sess.mismatch(rep0[lo:lo + SERVE_ROWS],
+                              voted[lo:lo + SERVE_ROWS]))
+        mism.append(time.perf_counter() - t0)
+    one = rep0[:SERVE_ROWS].contiguous()
+    mismatch_ms = timer(lambda: sess.mismatch(one, voted[:SERVE_ROWS]),
+                        reps=5, warmup=1)
+    emit({"phase": "serve", "split": "coalesced heal tick",
+          "image_mib": image.numel() * 4 / 2**20,
+          "build_s": build_s, "upload_s": min(uploads),
+          "upload_gb_per_s": image.numel() * 4 / min(uploads) / 1e9,
+          "fused_run_s": min(runs), "majx_ms": vote_ms,
+          "majx_bound_ms": bound((x + 1) * total * WORDS * 4,
+                                 total * WORDS * vote_ops(x))[0],
+          "mismatch_all_s": min(mism), "mismatch_one_ms": mismatch_ms,
+          "mismatch_launches": SERVE_N})
+    del image, final, planes
+
+
+def phase_tmr_ckpt(torch, kernel_mods) -> dict:
+    """The TMR checkpoint store on the card: save a tree of tensors three
+    times, corrupt one replica's data, restore voted through the MAJX
+    kernel (one launch a leaf), scrub; returns each kernel's launches."""
+    import tempfile
+
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.ckpt import tmr_store
+    from repro_torch.core import tree as tree_util
+
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    tree = {"w": torch.randn(4096, 4096, generator=g, device=DEVICE)
+            .to(torch.bfloat16),
+            "proj": torch.randn(2048, 4096, generator=g, device=DEVICE),
+            "emb": torch.randint(-128, 128, (1000, 333), generator=g,
+                                 device=DEVICE, dtype=torch.int8),
+            "opt": {"step": torch.arange(17, device=DEVICE,
+                                         dtype=torch.int32),
+                    "moments": [torch.randn(4096, generator=g,
+                                            device=DEVICE),
+                                torch.randn(3, 5, generator=g,
+                                            device=DEVICE)
+                                .to(torch.float16)]}}
+    leaves, _ = tree_util.flatten(tree)
+    names = [n for n, _ in tree_util.flatten_with_path(tree)[0]]
+
+    def same(got) -> bool:
+        return all(a.device == b.device and a.dtype == b.dtype and
+                   torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                   for a, b in zip(tree_util.flatten(got)[0], leaves))
+
+    zero_launches(kernel_mods)
+    secs = {}
+    with tempfile.TemporaryDirectory(prefix="tmr_ckpt") as d:
+        t0 = time.perf_counter()
+        tmr_store.save(tree, d, 7, replicas=3)
+        secs["save"] = time.perf_counter() - t0
+        # Flip bytes in three leaves of replica 1 and write its shard
+        # back: the archive stays readable, the manifest's crc32 fails.
+        shard = os.path.join(d, "replica_1", "step_00000007",
+                             "shard_p0.npz")
+        with np.load(shard) as data:
+            arrays = {k: data[k] for k in data.files}
+        with open(os.path.join(os.path.dirname(shard),
+                               "manifest.json")) as f:
+            keys = {leaf["name"]: leaf["key"]
+                    for leaf in json.load(f)["leaves"]}
+        frng = np.random.default_rng(7)
+        for name in ("['w']", "['proj']", "['emb']"):
+            raw = arrays[keys[name]].view(np.uint8).reshape(-1)
+            raw[frng.choice(raw.size, 4096, replace=False)] ^= 0xA5
+        np.savez(shard, **arrays)
+        try:
+            ckpt.restore(tree, os.path.join(d, "replica_1"))
+        except IOError as err:
+            check("crc mismatch" in str(err), f"corruption: {err}")
+        else:
+            raise AssertionError("the corrupted replica restored verified")
+        before = kernel_mods["majx"].launches
+        t0 = time.perf_counter()
+        got, step, bad = tmr_store.restore(tree, d, use_kernel=True)
+        _sync(torch)
+        secs["restore_kernel"] = time.perf_counter() - t0
+        majx = kernel_mods["majx"].launches - before
+        check((step, bad) == (7, 1), f"restore: step {step}, {bad} bad")
+        want = len(leaves) if DEVICE == "cuda" else 0
+        check(majx == want, f"restore launched MAJX {majx} times for "
+              f"{len(leaves)} leaves")
+        check(same(got), "restore(use_kernel=True) != the clean tree")
+        t0 = time.perf_counter()
+        plain, _, _ = tmr_store.restore(tree, d)
+        _sync(torch)
+        secs["restore_plain"] = time.perf_counter() - t0
+        check(same(plain), "restore() != the clean tree")
+        t0 = time.perf_counter()
+        check(tmr_store.scrub(tree, d) == 1, "scrub: want 1 healed")
+        secs["scrub"] = time.perf_counter() - t0
+        for r in range(3):
+            again, _ = ckpt.restore(tree, os.path.join(d, f"replica_{r}"),
+                                    verify=True)
+            check(same(again), f"replica {r} after scrub != the clean tree")
+        check(tmr_store.scrub(tree, d) == 0, "scrub: nothing left to heal")
+    emit({"phase": "tmr_ckpt", "leaves": names,
+          "bytes": sum(t.numel() * t.element_size() for t in leaves),
+          "replicas": 3, "bad": bad, "majx_launches": majx,
+          "host_s": secs})
+    return read_launches(kernel_mods, ("majx",), len(leaves), "tmr_ckpt")
+
+
 def main() -> int:
     import torch
 
@@ -985,6 +1443,8 @@ def main() -> int:
     path = timed("path", phase_path, torch, kernel_mods)
     session = timed("session", phase_session, torch, kernel_mods)
     arith = timed("arith", phase_arith, torch, kernel_mods, timer)
+    serve = timed("serve", phase_serve, torch, kernel_mods, timer)
+    tmr = timed("tmr_ckpt", phase_tmr_ckpt, torch, kernel_mods)
     emit({"phase": "walls", "seconds": walls})
 
     replaces = {
@@ -1005,10 +1465,13 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": replaces[name],
-            "launches": path[name] + session[name] + arith[name],
+            "launches": (path[name] + session[name] + arith[name]
+                         + serve[name] + tmr[name]),
             "launches_by_path": {"path": path[name],
                                  "session": session[name],
-                                 "arith": arith[name]},
+                                 "arith": arith[name],
+                                 "serve": serve[name],
+                                 "tmr_ckpt": tmr[name]},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -151,16 +151,16 @@ class Backend(abc.ABC):
     def words(self, x) -> torch.Tensor:
         """Packed words as this backend computes on them.
 
-        A ``uint32`` numpy array is copied to ``ctx.device``; a tensor
-        must already be int32 on that device (a tensor elsewhere raises
-        rather than silently running on another device).
+        Anything that is not a tensor is read as ``uint32`` words
+        (whatever ``np.asarray(x, np.uint32)`` takes, as the reference
+        takes it) and copied to ``ctx.device``; a tensor must already be
+        int32 on that device (a tensor elsewhere raises rather than
+        silently running on another device), and is used as it is.
         """
-        if isinstance(x, np.ndarray):
+        if not isinstance(x, torch.Tensor):
             return bp.from_u32(x, self.device)
-        if not isinstance(x, torch.Tensor) or x.dtype != torch.int32:
-            raise TypeError("packed words are uint32 numpy arrays or int32 "
-                            f"tensors, got {type(x).__name__} "
-                            f"{getattr(x, 'dtype', '')}")
+        if x.dtype != torch.int32:
+            raise TypeError(f"packed words are int32 tensors, got {x.dtype}")
         if x.device.type != self.device.type or (
                 self.device.index is not None
                 and x.device.index != self.device.index):

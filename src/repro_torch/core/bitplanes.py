@@ -28,9 +28,18 @@ WORD_BITS = 32
 ONES = -1
 
 
-def from_u32(a: np.ndarray, device) -> torch.Tensor:
-    """``uint32`` numpy array -> ``int32`` tensor with the same bits."""
-    a = np.ascontiguousarray(a, dtype=np.uint32)
+def from_u32(a, device) -> torch.Tensor:
+    """``uint32`` words -> ``int32`` tensor with the same bits.
+
+    Takes whatever ``np.asarray(a, np.uint32)`` takes (arrays of any
+    shape, 0-d included, scalars, lists), as the reference's
+    ``jnp.asarray(a, jnp.uint32)`` does; a non-contiguous or read-only
+    array is copied first, so the tensor never aliases memory it may
+    not write.
+    """
+    a = np.asarray(a, dtype=np.uint32)
+    if not (a.flags.c_contiguous and a.flags.writeable):
+        a = a.copy()
     return torch.from_numpy(a.view(np.int32)).to(device)
 
 

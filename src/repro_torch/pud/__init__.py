@@ -1,6 +1,8 @@
 """PUD runtime: the addressed instruction stream (:mod:`.isa`), the §8.1
 bit-serial arithmetic (:mod:`.arith`), the offload planner
-(:mod:`.offload`) and the latency re-exports (:mod:`.latency`)."""
+(:mod:`.offload`), the latency re-exports (:mod:`.latency`) and the
+X-replica majority vote (:mod:`.tmr`)."""
 
 from repro_torch.pud.isa import Program, PUDOp  # noqa: F401
 from repro_torch.pud.arith import BitSerial, run_elementwise  # noqa: F401
+from repro_torch.pud.tmr import vote_array, vote_pytree, vote_words  # noqa

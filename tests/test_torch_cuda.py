@@ -413,3 +413,104 @@ def test_session_elementwise_agrees_with_oracle(cuda_device, op):
         final = sess.run_fused(cp.program, cp.state, mode="megakernel")
     assert scope.count == 1
     assert torch.equal(cp.outputs(final), out)
+
+
+def _serve_mix(seed, words=1000):
+    """Heals (MAJ3 and MAJ5, flips in one replica), erases of two
+    patterns and integrity checks, as numpy specs."""
+    from repro_torch import serve
+
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i in range(4):
+        base = rng.integers(0, 2**32, (2 + i % 2, words), dtype=np.uint32)
+        reps = np.stack([base] * (5 if i == 3 else 3))
+        reps[i % 3].reshape(-1)[rng.choice(base.size, 3 + i,
+                                           replace=False)] ^= 1 << 7
+        reqs.append(lambda r=reps, i=i: serve.HealRequest(
+            replicas=r, tenant=f"h{i}"))
+    for i in range(3):
+        reqs.append(lambda i=i: serve.EraseRequest(
+            rows=5 + 31 * i, words=words,
+            pattern=0xDEADBEEF if i < 2 else 7, fanout=31,
+            tenant=f"e{i}"))
+    for i in range(3):
+        live = rng.integers(0, 2**32, (4, words), dtype=np.uint32)
+        ref = live.copy()
+        ref[0, :i + 1] ^= 0xF
+        reqs.append(lambda a=live, b=ref, i=i: serve.IntegrityRequest(
+            live=a, reference=b, tenant=f"v{i}"))
+    return [make() for make in reqs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("coalesce", [True, False])
+def test_service_on_the_card_matches_the_cpu_route(cuda_device, coalesce):
+    """``PudService()`` on the card (the default) gives the CPU route's
+    results and dispatches, and its dispatches are the kernels'
+    launches: MAJX for heals, fan-out for erases, mismatch for each
+    heal's ``fixed_bits`` and each check."""
+    from repro_torch.serve import PudService, ServiceConfig
+
+    mods = {"majx": majx_ops, "fanout": rowcopy_ops,
+            "mismatch": mismatch_ops, "megakernel": mega_ops}
+    card = PudService(ServiceConfig(coalesce=coalesce))
+    assert card.sessions[0].backend.device.type == "cuda"
+    before = {n: m.launches for n, m in mods.items()}
+    got = card.serve(_serve_mix(1))
+    launches = {n: m.launches - before[n] for n, m in mods.items()}
+    cpu = PudService(ServiceConfig(
+        coalesce=coalesce, ctx=ExecutionContext(ideal=True, device="cpu")))
+    want = cpu.serve(_serve_mix(1))
+    for g, w in zip(got, want):
+        for field in ("healed", "wiped"):
+            if hasattr(w, field):
+                assert getattr(g, field).device.type == "cuda"
+                assert torch.equal(getattr(g, field).cpu(),
+                                   getattr(w, field))
+        for field in ("fixed_bits", "mismatch_bits"):
+            assert getattr(g, field, None) == getattr(w, field, None)
+    assert card.snapshot().dispatches == cpu.snapshot().dispatches == \
+        sum(launches.values())
+    heal_groups = 2 if coalesce else 4
+    erase_groups = 2 if coalesce else 3
+    assert launches == {"majx": heal_groups, "fanout": erase_groups,
+                        "mismatch": 4 + 3, "megakernel": 0}
+
+
+@pytest.mark.cuda
+def test_tmr_store_restores_a_tree_on_the_card(cuda_device, tmp_path):
+    """A tree on the card saves, loses one replica's leaf bytes, and
+    restores voted on the card: one MAJX launch a leaf, bit-exact."""
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.ckpt import tmr_store
+    from repro_torch.core import tree as tree_util
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    tree = {"w": torch.randn(64, 96, generator=g, device="cuda").to(
+                torch.bfloat16),
+            "opt": [torch.randn(333, generator=g, device="cuda"),
+                    torch.randint(-128, 127, (10, 33), generator=g,
+                                  device="cuda", dtype=torch.int8)],
+            "meta": {"n": torch.arange(7, device="cuda",
+                                       dtype=torch.int32)}}
+    tmr_store.save(tree, str(tmp_path), 5, replicas=3)
+    shard = tmp_path / "replica_2" / "step_00000005" / "shard_p0.npz"
+    with np.load(shard) as data:
+        arrays = {k: data[k].copy() for k in data.files}
+    for a in arrays.values():
+        a.view(np.uint8).reshape(-1)[::3] ^= 0x5A
+    np.savez(shard, **arrays)
+    before = majx_ops.launches
+    got, step, bad = tmr_store.restore(tree, str(tmp_path),
+                                       use_kernel=True)
+    leaves, _ = tree_util.flatten(tree)
+    assert (step, bad) == (5, 1)
+    assert majx_ops.launches - before == len(leaves)
+    for a, b in zip(tree_util.flatten(got)[0], leaves):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    assert tmr_store.scrub(tree, str(tmp_path)) == 1
+    again, _ = ckpt.restore(tree, str(tmp_path / "replica_2"))
+    for a, b in zip(tree_util.flatten(again)[0], leaves):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
