@@ -15,8 +15,11 @@ megakernel launch), and ``add_planes`` runs the bulk bit-serial adder.
 The fourth is the multi-tenant service: ``PudService()`` batches heal,
 erase and integrity requests into fused Programs over a pool of
 sessions.  The fifth is the TMR checkpoint store, which votes replicas
-of a tree on the card with the MAJX kernel.  Phases, one JSON line
-each:
+of a tree on the card with the MAJX kernel.  The sixth is the paper's
+own subject: the behavioural device model (``Subarray``, the ``sim``
+backend, threefry draws word for word with jax) and the
+characterization sweep (``run_sweep`` and its CLI).  Phases, one JSON
+line each:
 
 1. build — compile the CUDA kernels of ``src/repro_torch/csrc`` with
    nvcc (all sources at once) and print the card's name and power limit;
@@ -62,9 +65,24 @@ each:
    list) three times, one replica's data is corrupted, and
    ``restore(use_kernel=True)`` must return the clean tree on the card
    with one MAJX launch a leaf; ``scrub`` rewrites the bad replica;
-8. the kernels line, then ``{"ok": true, ...}`` as the last line.
+8. sweep — the threefry draws against literal known-answer vectors
+   (jax's, recomputed by ``tests/test_torch_rng.py``) on the card and
+   the CPU, and 2**23 floats bit-identical on both; the ``Subarray``
+   model (MAJ3/5/7/9 at 32-row activation, Multi-RowCopy to 31 rows,
+   Frac) over one 8 KiB rank row, bit-identical on the card and the CPU
+   with ``ideal=False``, and at 2**18 words on the card, ideal equal to
+   the oracle and stochastic within 0.05 of the ErrorModel; a
+   stochastic MAJX sweep shaped like Fig. 6 (``sim``, ``cuda``,
+   ``oracle``; 64 row images of 2048 words), with a ``sim`` chunk re-run
+   on the CPU and a resumed run executing nothing; an MRC sweep shaped
+   like Fig. 11; Fig. 7's grid on ``cuda`` and ``oracle`` at 2**18 words
+   (one fused MAJX launch a chunk); then ``python -m
+   repro_torch.sweep.run --smoke`` (twice, the second
+   ``--expect-cached``) and ``--adaptive``, and ``python -m
+   repro_torch.analyze --sweep``, in process;
+9. the kernels line, then ``{"ok": true, ...}`` as the last line.
 
-Every kernel's launch count is zeroed just before phases 3-7 and read
+Every kernel's launch count is zeroed just before phases 3-8 and read
 just after each: the launches must add up to the backend's dispatches
 (the store's: one MAJX launch a leaf), and every kernel of the phase's
 path must have launched.
@@ -1410,6 +1428,470 @@ def phase_tmr_ckpt(torch, kernel_mods) -> dict:
     return read_launches(kernel_mods, ("majx",), len(leaves), "tmr_ckpt")
 
 
+# ------------------------------------------------------------ sweep
+#: Known-answer vectors of jax 0.9.0's draws (threefry2x32, partitionable
+#: counters, 64-bit types disabled): each case and its uint32 words,
+#: float32 draws as their bit patterns, bools as 0/1.
+#: ``tests/test_torch_rng.py`` recomputes every one with jax; the card's
+#: machine has no JAX, so they are literals here.
+RNG_VECTORS = [
+    (("key", 0), [0, 0]),
+    (("key", 20261017), [0, 20261017]),
+    (("key", -3), [0, 4294967293]),
+    (("split", 7, 3), [3625411723, 1954958720, 195045567, 4062205631,
+                       966301609, 1948237315]),
+    (("fold_in", 7, 2147483647), [2754890656, 2861703899]),
+    (("fold_in", 1009, 5), [3225684408, 1181187759]),
+    (("bits", 7, (2, 5)), [2895194379, 4185947648, 1300703658, 1906787632,
+                           3139134342, 2709822315, 1926509400, 1767298410,
+                           299634315, 385396910]),
+    (("bits", 0, ()), [4070199207]),
+    (("uniform", 7, (8,), 0.0, 1.0), [1059885352, 1064927358, 1050349136,
+                                      1055084168, 1060838242, 1059161242,
+                                      1055238244, 1053994408]),
+    (("uniform", 3, (6,), -0.4, 0.4), [3199104979, 1051948739, 1039404314,
+                                       1052954746, 3191180685, 1032315584]),
+    (("bernoulli", 7, 0.3, (16,)), [0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 0, 0, 0,
+                                    1, 0, 0]),
+]
+SWEEP_ROWS = 64          # row images a point in the Fig. 6-shaped sweep
+
+
+def rng_case(rng, case, device):
+    """One known-answer case drawn by the port on ``device``, as int32
+    words on the CPU (keys derive on the host whatever the device)."""
+    import torch
+
+    kind, seed, *args = case
+    key = rng.PRNGKey(seed)
+    if kind == "key":
+        out = key
+    elif kind == "split":
+        out = rng.split(key, args[0])
+    elif kind == "fold_in":
+        out = rng.fold_in(key, args[0])
+    elif kind == "bits":
+        out = rng.random_bits(key, args[0], device)
+    elif kind == "uniform":
+        out = rng.uniform(key, args[0], args[1], args[2], device).view(
+            torch.int32)
+    else:
+        out = rng.bernoulli(key, args[0], args[1], device).to(torch.int32)
+    return out.cpu()
+
+
+def device_model_ops(torch, sa, seed: int):
+    """A random fill, then MAJ3/5/7/9 at 32-row activation, a
+    Multi-RowCopy to 31 rows and Frac of 4 rows on one subarray; returns
+    the results (four MAJX planes, then the 31 copies) on the
+    subarray's device, the operands written (four stacks, then the
+    source row) and the wall of each step, the device synchronized
+    around it (its host draws of the operands included)."""
+    from repro_torch.core import majx as mj
+    from repro_torch.core import rowcopy as rc
+
+    rng = np.random.default_rng(seed)
+    walls = {}
+
+    def step(name, fn):
+        _sync(torch)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(torch)
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    step("fill", lambda: sa.fill("random"))
+    out, ops = [], []
+    for i, x in enumerate((3, 5, 7, 9)):
+        operands = rng.integers(0, 2**32, (x, sa.n_words), dtype=np.uint32)
+        ops.append(operands)
+        out.append(step(f"maj{x}", lambda: mj.majx(
+            sa, list(operands), 32, base_row=32 * i)))
+    src = rng.integers(0, 2**32, sa.n_words, dtype=np.uint32)
+    ops.append(src)
+    _, dests = step("mrc31", lambda: rc.multi_rowcopy(sa, src, 32,
+                                                      base_row=128))
+    out.append(sa.planes[torch.tensor(dests, device=sa.device)])
+    step("frac4", lambda: rc.frac_init(sa, range(200, 204)))
+    return out, ops, walls
+
+
+def count_calls(cls, name: str, tally: list):
+    """Wrap ``cls.name`` so that each call appends to ``tally``; returns
+    the undo.  The script counts the backend's dispatches and fused runs
+    so; what they do is unchanged."""
+    orig = getattr(cls, name)
+
+    def wrapped(self, *a, **kw):
+        tally.append(1)
+        return orig(self, *a, **kw)
+
+    setattr(cls, name, wrapped)
+    return lambda: setattr(cls, name, orig)
+
+
+def same_but_backend(a: dict, b: dict) -> bool:
+    return ({k: v for k, v in a.items() if k not in ("index", "backend")}
+            == {k: v for k, v in b.items() if k not in ("index", "backend")})
+
+
+def sweep_rng(torch) -> None:
+    """The literal vectors on the card and on the CPU, then one draw of
+    2**23 floats on both, bit-identical."""
+    from repro_torch.core import bitplanes as bp
+    from repro_torch.core import rng
+
+    for case, words in RNG_VECTORS:
+        for dev in (DEVICE, "cpu"):
+            got = bp.to_u32(rng_case(rng, case, dev)).reshape(-1).tolist()
+            check(got == words, f"rng {case} on {dev}: {got} != {words}")
+    key = rng.fold_in(rng.PRNGKey(20261017), 0x5EED)
+    _sync(torch)
+    t0 = time.perf_counter()
+    big = rng.uniform(key, (2**23,), device=DEVICE)
+    _sync(torch)
+    draw_s = time.perf_counter() - t0
+    host = rng.uniform(key, (2**23,), device="cpu")
+    check(torch.equal(big.cpu().view(torch.int32), host.view(torch.int32)),
+          "rng: 2**23 floats differ between the card and the CPU")
+    emit({"phase": "sweep", "rng_vectors": len(RNG_VECTORS),
+          "uniform_2e23_s": draw_s})
+
+
+def sweep_device_model(torch) -> None:
+    """The Subarray model: one 8 KiB rank row on the card and the CPU,
+    bit-identical with ``ideal=False``; then the bank width on the card,
+    ``ideal=True`` against the oracle and stochastic within 0.05 of the
+    ErrorModel's success; the wall per op."""
+    from repro_torch.backends import ExecutionContext, get_backend
+    from repro_torch.core import calibration as cal
+    from repro_torch.core.errormodel import ErrorModel
+    from repro_torch.core.subarray import DeviceProfile, Subarray
+
+    def subarray(words, device, ideal):
+        return Subarray(DeviceProfile.mfr_h(), cols=words * 32, seed=11,
+                        ideal=ideal, device=device)
+
+    card, host = (subarray(RANK_WORDS, d, False) for d in (DEVICE, "cpu"))
+    got, _, rank_walls = device_model_ops(torch, card, 1)
+    want, _, _ = device_model_ops(torch, host, 1)
+    check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+          and torch.equal(card.planes.cpu(), host.planes)
+          and (card.frac_rows == host.frac_rows).all(),
+          "device model: the card's planes differ from the CPU's")
+    oracle = get_backend("oracle", ExecutionContext(device=DEVICE))
+    em = ErrorModel("H")
+    walls, measured = {}, {}
+    for ideal in (True, False):
+        tag = "ideal" if ideal else "stochastic"
+        sa = subarray(WORDS, DEVICE, ideal)
+        outs, ops, walls[tag] = device_model_ops(torch, sa, 2)
+        wants = [oracle.majx(o) for o in ops[:4]]
+        wants.append(oracle.rowcopy(ops[4], 31))
+        expects = [em.majx_success(x, 32, t1=cal.MAJX_BEST_T1_NS,
+                                   t2=cal.MAJX_BEST_T2_NS)
+                   for x in (3, 5, 7, 9)]
+        expects.append(em.mrc_success(31, t1=cal.MRC_BEST_T1_NS,
+                                      t2=cal.MRC_BEST_T2_NS))
+        for name, res, w, e in zip(("maj3", "maj5", "maj7", "maj9",
+                                    "mrc31"), outs, wants, expects):
+            rate = 1.0 - int(oracle.mismatch(res, w)) / (res.numel() * 32)
+            measured[f"{name}_{tag}"] = [rate, 1.0 if ideal else e]
+            check(rate == 1.0 if ideal else abs(rate - e) <= 0.05,
+                  f"device model {name} {tag}: success {rate} against "
+                  f"{1.0 if ideal else e}")
+        check(sa.frac_rows[200:204].all(), "Frac left rows unmarked")
+        del sa
+    emit({"phase": "sweep", "device_model": {
+        "rank_words": RANK_WORDS, "bank_words": WORDS,
+        "rank_row_wall_s": rank_walls, "bank_wall_s": walls,
+        "success": measured}})
+
+
+def sweep_spice(torch) -> None:
+    """The §7.2 Monte-Carlo study (``chargeshare.spice_study``, 10**4
+    iterations a cell of its N x PV grid) on the card and on the CPU:
+    every deviation bit-identical and every success count equal; the
+    32- over 4-row deviation gain and the 0 -> 40 % PV success drops
+    beside the paper's."""
+    import math
+
+    from repro_torch.core import calibration as cal
+    from repro_torch.core import chargeshare as cs
+    from repro_torch.core import rng
+
+    key = rng.PRNGKey(0)
+    cs.spice_study(key, 16, device=DEVICE)                  # warm-up
+    _sync(torch)
+    t0 = time.perf_counter()
+    card = cs.spice_study(key, device=DEVICE)
+    _sync(torch)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = cs.spice_study(key, device="cpu")
+    host_s = time.perf_counter() - t0
+    check(card.keys() == host.keys() and len(card) == 25,
+          f"spice: cells {sorted(card)}")
+    for k, want in host.items():
+        got = card[k]
+        check(all(math.isfinite(v) for v in got.values())
+              and got == want,
+              f"spice {k}: card {got} != CPU {want}")
+    gain = card[(32, 0.0)]["dev_mean"] / card[(4, 0.0)]["dev_mean"] - 1.0
+    drops = {n: 1.0 - card[(n, 0.4)]["success_rate"]
+             / card[(n, 0.0)]["success_rate"] for n in (4, 32)}
+    check(abs(gain - cal.SPICE_DEVIATION_GAIN_32_OVER_4_REL) < 0.01,
+          f"spice: 32/4-row deviation gain {gain}")
+    emit({"phase": "sweep", "spice": {
+        "iters": cal.SPICE_MC_ITERS, "cells": len(card), "card_s": card_s,
+        "cpu_s": host_s, "dev_gain_32_over_4": gain,
+        "paper_gain": cal.SPICE_DEVIATION_GAIN_32_OVER_4_REL,
+        "pv40_drop": {"4": drops[4], "32": drops[32]},
+        "paper_drop": {"4": cal.SPICE_MAJ3_4ROW_PV_DROP_REL,
+                       "32": cal.SPICE_MAJ3_32ROW_PV_DROP_REL}}})
+
+
+SWEEP_RANGES = ("sweep.draws", "sweep.upload", "sweep.fused_run",
+                "sweep.oracle", "sweep.counts")
+
+
+def sweep_profile(torch, fig6, fig7) -> None:
+    """Where a sweep chunk's wall goes, outside the counted window: the
+    card's busy share in one ``sim`` chunk of ``fig6`` and one ``cuda``
+    chunk of ``fig7`` from ``torch.profiler`` traces (the profiler
+    lengthens the walls), and the ``cuda`` chunk split by the ranges
+    ``_Executor._majx_batched`` marks: host time (inclusive) and the
+    device time of the kernels launched inside each range."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.sweep import planner
+    from repro_torch.sweep import runner as sr
+
+    def device_us(e, kind):
+        name = f"{kind}device_time_total"
+        return getattr(e, name if hasattr(e, name)
+                       else f"{kind}cuda_time_total", 0)
+
+    out = {}
+    for tag, spec, backend in (("sim_chunk", fig6, "sim"),
+                               ("cuda_chunk", fig7, "cuda")):
+        chunk = [c for c in planner.plan(spec) if c.backend == backend][-1]
+        sr._Executor(spec, device=DEVICE).execute(chunk)     # warm-up
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            sr._Executor(spec, device=DEVICE).execute(chunk)
+            _sync(torch)
+            wall = time.perf_counter() - t0
+        busy_us, kernels = 0.0, 0
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA or e.key in SWEEP_RANGES:
+                continue
+            busy_us += device_us(e, "self_")
+            kernels += e.count
+        out[tag] = {"points": len(chunk.points), "rows": spec.rows,
+                    "words": spec.words, "wall_s": wall,
+                    "device_busy_s": busy_us / 1e6 if busy_us else None,
+                    "device_busy_share": busy_us / 1e6 / wall
+                    if busy_us else None, "device_ops": kernels}
+        if backend == "cuda":
+            split = {r: {"host_s": 0.0, "device_s": 0.0}
+                     for r in SWEEP_RANGES}
+            for e in prof.events():
+                if e.name in split and e.device_type == DeviceType.CPU:
+                    split[e.name]["host_s"] += e.cpu_time_total / 1e6
+                    split[e.name]["device_s"] += device_us(e, "") / 1e6
+            check(all(v["host_s"] > 0 for v in split.values()),
+                  f"profile: a range of the cuda chunk is missing: {split}")
+            out[tag]["split"] = split
+            out[tag]["batch_mib"] = sum(
+                p.x * spec.rows * spec.words * 4
+                for p in chunk.points) / 2**20
+    emit({"phase": "sweep", "profile": out})
+
+
+def phase_sweep(torch, kernel_mods) -> dict:
+    """The sweep phase, its record stores in a temporary directory."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sweep_") as root:
+        return sweep_in(torch, kernel_mods, root)
+
+
+def sweep_in(torch, kernel_mods, root: str) -> dict:
+    """The behavioural device model and the characterization sweep on
+    the card: the threefry draws against literal vectors, the Subarray
+    model at two widths, the §7.2 Monte-Carlo study, a stochastic MAJX
+    sweep shaped like Fig. 6, an MRC sweep shaped like Fig. 11 and the
+    ``cuda`` batched path at the bank width (Fig. 7's grid), then the
+    sweep CLI and the analyzer's ``--sweep``; returns each kernel's
+    launches over the three sweeps."""
+    from repro_torch.analyze.__main__ import main as analyze_main
+    from repro_torch.backends.cuda import CudaBackend
+    from repro_torch.core import calibration as cal
+    from repro_torch.sweep import SweepSpec, aggregate, planner, run_sweep
+    from repro_torch.sweep import runner as sweep_runner
+    from repro_torch.sweep.run import main as sweep_main
+
+    sweep_rng(torch)
+    sweep_device_model(torch)
+    sweep_spice(torch)
+
+    dispatches, fused, chunk_walls = [], [], []
+    undo = [count_calls(CudaBackend, "_launch", dispatches),
+            count_calls(CudaBackend, "run_fused", fused)]
+    orig_execute = sweep_runner._Executor.execute
+
+    def timed_execute(self, chunk):
+        _sync(torch)
+        t0 = time.perf_counter()
+        out = orig_execute(self, chunk)
+        _sync(torch)
+        chunk_walls.append([chunk.backend, len(chunk.points),
+                            time.perf_counter() - t0])
+        return out
+
+    sweep_runner._Executor.execute = timed_execute
+    undo.append(lambda: setattr(sweep_runner._Executor, "execute",
+                                orig_execute))
+    report = {}
+    fig6 = SweepSpec(name="chip-fig6", op="majx",
+                     backends=("sim", "cuda", "oracle"),
+                     x_values=(3, 5, 7, 9), n_act=(4, 8, 16, 32),
+                     patterns=("random",), rows=SWEEP_ROWS,
+                     words=RANK_WORDS, ideal=False, seeds=(0,))
+    fig11 = SweepSpec(name="chip-fig11", op="mrc", backends=("sim", "cuda"),
+                      n_act=(2, 4, 8, 16, 32),
+                      patterns=("0x00", "0xFF", "random"), words=RANK_WORDS)
+    fig7 = SweepSpec(name="chip-fig7-bank", op="majx",
+                     backends=("cuda", "oracle"), x_values=(3, 5, 7, 9),
+                     n_act=(32,), patterns=cal.DATA_PATTERNS, ideal=True,
+                     rows=2, words=WORDS, chunk=8)
+    try:
+        zero_launches(kernel_mods)
+        # 3. A stochastic MAJX sweep shaped like Fig. 6.
+        t0 = time.perf_counter()
+        res = run_sweep(fig6, root, device=DEVICE)
+        fig6_s = time.perf_counter() - t0
+        by = {}
+        for r in res.records:
+            by.setdefault(r["backend"], {})[(r["x"], r["n_act"])] = r
+        check(len(res.records) == fig6.n_points() == 36,
+              f"fig6: {len(res.records)} records")
+        for k, r in by["cuda"].items():
+            check(same_but_backend(r, by["oracle"][k])
+                  and r["success"] == 1.0, f"fig6: cuda {r} != oracle")
+        for r in by["sim"].values():
+            check(abs(r["success"] - r["expected"]) <= 0.05,
+                  f"fig6: sim {r['x']}@{r['n_act']} success "
+                  f"{r['success']} against {r['expected']}")
+        delta = aggregate.replication_delta(res.records, backend="sim")
+        check(delta > 0.15, f"fig6: replication delta {delta}")
+        sim_chunk = [c for c in planner.plan(fig6) if c.backend == "sim"][-1]
+        stored = [r for r in res.records if r["index"] in sim_chunk.indices]
+        t1 = time.perf_counter()
+        again = orig_execute(sweep_runner._Executor(fig6, device="cpu"),
+                             sim_chunk)
+        cpu_chunk_s = time.perf_counter() - t1
+        check(again == stored, "fig6: a sim chunk re-run on the CPU differs")
+        resumed = run_sweep(fig6, root, device=DEVICE)
+        check(resumed.executed_chunks == 0
+              and resumed.records == res.records,
+              f"fig6 resume: {resumed.summary()}")
+        report["fig6"] = {
+            "points": fig6.n_points(), "wall_s": fig6_s,
+            "replication_delta": delta, "paper": 0.3081,
+            "sim_success_expected": {
+                f"{x}@{n}": [r["success"], r["expected"]]
+                for (x, n), r in sorted(by["sim"].items())},
+            "sim_chunk_points": len(sim_chunk.points),
+            "sim_chunk_cpu_s": cpu_chunk_s}
+
+        # 4. An MRC sweep shaped like Fig. 11.
+        t0 = time.perf_counter()
+        res = run_sweep(fig11, root, device=DEVICE)
+        fig11_s = time.perf_counter() - t0
+        for r in res.records:
+            check(r["success"] == 1.0 if r["backend"] == "cuda"
+                  else abs(r["success"] - r["expected"]) <= 0.05,
+                  f"fig11: {r}")
+        report["fig11"] = {
+            "points": fig11.n_points(), "wall_s": fig11_s,
+            "sim_success_expected": {
+                f"{r['n_dest']}/{r['pattern']}": [r["success"],
+                                                  r["expected"]]
+                for r in res.records if r["backend"] == "sim"}}
+
+        # 5. The cuda batched path at the bank width: Fig. 7's grid (the
+        # five §3.1 MAJX patterns, so each arity's chunk holds 5 points).
+        first = len(chunk_walls)
+        t0 = time.perf_counter()
+        res = run_sweep(fig7, root, device=DEVICE)
+        fig7_s = time.perf_counter() - t0
+        by = {}
+        for r in res.records:
+            by.setdefault(r["backend"], {})[(r["x"], r["pattern"])] = r
+        for k, r in by["cuda"].items():
+            check(same_but_backend(r, by["oracle"][k])
+                  and r["success"] == 1.0, f"fig7: cuda {r} != oracle")
+        walls = {b: [w for b2, _, w in chunk_walls[first:] if b2 == b]
+                 for b in ("cuda", "oracle")}
+        report["fig7_bank"] = {
+            "points": fig7.n_points(), "wall_s": fig7_s,
+            "words": WORDS, "cuda_wall_s_per_chunk": walls["cuda"],
+            "cuda_points_per_s": len(by["cuda"]) / sum(walls["cuda"]),
+            "oracle_wall_s_per_chunk": walls["oracle"]}
+    finally:
+        for u in undo:
+            u()
+    want_fused = sum(1 for spec in (fig6, fig7) for c in planner.plan(spec)
+                     if c.backend == "cuda" and len(c.points) > 1)
+    check(kernel_mods["majx"].launches == len(fused) == want_fused,
+          f"sweep: MAJX launches {kernel_mods['majx'].launches}, fused "
+          f"runs {len(fused)}, fused chunks {want_fused}")
+    report["fused_chunks"] = want_fused
+    report["chunk_walls"] = chunk_walls
+    emit({"phase": "sweep", **report})
+    launches = read_launches(kernel_mods, ("majx", "fanout", "mismatch"),
+                             len(dispatches), "sweep")
+    if DEVICE == "cuda":
+        sweep_profile(torch, fig6, fig7)
+
+    # 6. The CLI: --smoke twice (the second fully cached), --adaptive,
+    # and the analyzer's --sweep subject.
+    cwd = os.getcwd()
+    os.chdir(ROOT)
+    outs = {}
+    try:
+        for name, main_fn, argv in (
+                ("smoke", sweep_main, ["--smoke", "--root", root, "--quiet",
+                                       "--device", DEVICE]),
+                ("smoke_cached", sweep_main,
+                 ["--smoke", "--root", root, "--quiet", "--device", DEVICE,
+                  "--expect-cached"]),
+                ("adaptive", sweep_main, ["--adaptive", "--root", root,
+                                          "--quiet", "--device", DEVICE]),
+                ("analyze_sweep", analyze_main, ["--sweep"])):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = main_fn(argv)
+            lines = buf.getvalue().splitlines()
+            check(rc == 0, f"{name}: rc {rc}\n" + "\n".join(lines))
+            outs[name] = {"s": time.perf_counter() - t0, "lines": lines}
+    finally:
+        os.chdir(cwd)
+    check(" 0 chunks executed" in outs["smoke_cached"]["lines"][0],
+          f"--expect-cached: {outs['smoke_cached']['lines']}")
+    check(any(ln.startswith("OK   sweep/smoke/chunk-")
+              for ln in outs["analyze_sweep"]["lines"]),
+          f"analyze --sweep: {outs['analyze_sweep']['lines']}")
+    emit({"phase": "sweep", "cli": outs})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1445,6 +1927,7 @@ def main() -> int:
     arith = timed("arith", phase_arith, torch, kernel_mods, timer)
     serve = timed("serve", phase_serve, torch, kernel_mods, timer)
     tmr = timed("tmr_ckpt", phase_tmr_ckpt, torch, kernel_mods)
+    sweep = timed("sweep", phase_sweep, torch, kernel_mods)
     emit({"phase": "walls", "seconds": walls})
 
     replaces = {
@@ -1466,12 +1949,13 @@ def main() -> int:
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": replaces[name],
             "launches": (path[name] + session[name] + arith[name]
-                         + serve[name] + tmr[name]),
+                         + serve[name] + tmr[name] + sweep[name]),
             "launches_by_path": {"path": path[name],
                                  "session": session[name],
                                  "arith": arith[name],
                                  "serve": serve[name],
-                                 "tmr_ckpt": tmr[name]},
+                                 "tmr_ckpt": tmr[name],
+                                 "sweep": sweep[name]},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

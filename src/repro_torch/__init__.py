@@ -1,14 +1,16 @@
 """PyTorch/CUDA port of the SiMRA-DRAM processing-using-DRAM system.
 
 A second package beside the JAX reference (``repro``), with the same
-layout and names: ``core`` (calibration, bit-planes, cost model),
-``pud`` (the PUD instruction stream), ``compile`` (fusion scheduler and
-megakernel lowering), ``backends`` (``oracle`` and ``cuda`` executors),
+layout and names: ``core`` (calibration, bit-planes, cost model, the
+behavioural subarray model and its threefry draws), ``pud`` (the PUD
+instruction stream), ``compile`` (fusion scheduler and megakernel
+lowering), ``backends`` (``oracle``, ``sim`` and ``cuda`` executors),
 ``kernels`` (hand-written CUDA kernels for Hopper, in ``csrc/``, each
 with its plain PyTorch version), ``analyze`` (race, liveness and
 equivalence certification of compiled programs) and ``session``
 (``DramSession``: typed, validated, compile-cached and certified
-execution).  It imports neither JAX nor the
+execution), ``serve``, ``ckpt`` and ``sweep`` (declarative, resumable
+characterization campaigns).  It imports neither JAX nor the
 reference package; :mod:`repro_torch.interop` carries the reference's
 artefacts across as numpy arrays and JSON.
 

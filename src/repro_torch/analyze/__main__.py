@@ -1,7 +1,7 @@
 """``python -m repro_torch.analyze`` — lint and certify the real programs.
 
-Subjects (combine freely; ``--all`` is every ported subject plus the
-negative mutation gate and the certificate-cache check):
+Subjects (combine freely; ``--all`` is every subject plus the negative
+mutation gate and the certificate-cache check):
 
 * ``--golden``  — every ``tests/golden/*.json`` fixture program,
   certified against a freshly built schedule AND megakernel lowering;
@@ -11,9 +11,8 @@ negative mutation gate and the certificate-cache check):
   actually builds (captured from a real
   :class:`~repro_torch.serve.batcher.Batcher` tick on the oracle
   backend, on ``--device``: the card unless told otherwise).
-* ``--sweep``   — the reference's smoke-sweep subject; it needs the
-  sweep planner, which the port does not have yet, so it prints what it
-  waits for and exits 2 (``--all`` says it is pending and skips it).
+* ``--sweep``   — the fused MAJX chunk programs of the smoke sweep
+  spec, as planned by :func:`repro_torch.sweep.planner.plan`.
 * ``--mutate``  — the negative gate: every applicable seeded mutation
   (:mod:`repro_torch.analyze.mutate`) of every golden lowering must be
   *rejected*; an accepted mutation is a hole in the analyzer and fails
@@ -131,10 +130,24 @@ def lint_serve(verbose: bool, device: str = "cuda") -> bool:
     return ok
 
 
-#: What ``--sweep`` waits for: the reference lints the sweep planner's
-#: chunk programs, and the port has no sweep planner yet.
-SWEEP_PENDING = ("sweep: waits for the port of sweep/ (ROADMAP queue 1 "
-                 "item 9); not linted")
+def lint_sweep(verbose: bool) -> bool:
+    """Certify the fused chunk programs of the smoke sweep spec."""
+    from repro_torch.session.cache import program_key
+    from repro_torch.sweep.planner import fused_majx_program, plan
+    from repro_torch.sweep.presets import smoke_spec
+
+    spec = smoke_spec()
+    ok = True
+    seen: set[str] = set()
+    for chunk in plan(spec):
+        prog, _ = fused_majx_program(chunk.points, spec.rows)
+        key = program_key(prog)
+        if key in seen:
+            continue  # same chunk shape across backends — one lint
+        seen.add(key)
+        ok &= _certify_one(f"sweep/{spec.name}/{chunk.key}", prog,
+                           verbose=verbose)
+    return ok
 
 
 def mutation_gate(golden_dir: str, verbose: bool) -> bool:
@@ -202,15 +215,13 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--serve", action="store_true",
                     help="lint the serve batcher's tick programs")
     ap.add_argument("--sweep", action="store_true",
-                    help="the smoke sweep's chunk programs (not ported "
-                         "yet: exits 2)")
+                    help="lint the smoke sweep's chunk programs")
     ap.add_argument("--mutate", action="store_true",
                     help="negative gate: seeded mutations must be rejected")
     ap.add_argument("--cache-check", action="store_true",
                     help="assert repeat certification is a pure cache hit")
     ap.add_argument("--all", action="store_true",
-                    help="every ported subject plus the mutation and "
-                         "cache gates")
+                    help="every subject plus the mutation and cache gates")
     ap.add_argument("--golden-dir", default="",
                     help="override the golden fixture directory")
     ap.add_argument("--device", default="cuda",
@@ -222,24 +233,20 @@ def main(argv: list[str] | None = None) -> int:
                 args.cache_check, args.all)):
         args.all = True
 
-    if args.sweep:
-        print(SWEEP_PENDING)
-        return 2
     golden_dir = _golden_dir(args.golden_dir)
     ok = True
     if args.golden or args.all:
         ok &= lint_golden(golden_dir, args.verbose)
     if args.serve or args.all:
         ok &= lint_serve(args.verbose, args.device)
-    if args.all:
-        print(SWEEP_PENDING)
+    if args.sweep or args.all:
+        ok &= lint_sweep(args.verbose)
     if args.mutate or args.all:
         ok &= mutation_gate(golden_dir, args.verbose)
     if args.cache_check or args.all:
         ok &= cache_check(golden_dir)
-    passed = ("analyze: all ported gates passed (sweep pending)"
-              if args.all else "analyze: all gates passed")
-    print(passed if ok else "analyze: FAILURES (see above)")
+    print("analyze: all gates passed" if ok
+          else "analyze: FAILURES (see above)")
     return 0 if ok else 1
 
 

@@ -3,7 +3,7 @@
 One :class:`~repro_torch.pud.isa.Program`, interchangeable executors:
 
 >>> from repro_torch.backends import ExecutionContext, get_backend
->>> be = get_backend("cuda")                    # or "oracle"
+>>> be = get_backend("cuda")                    # or "oracle" / "sim"
 >>> out = be.run_fused(program, state, mode="megakernel")
 
 Every backend takes the same :class:`ExecutionContext` (calibration
@@ -20,10 +20,12 @@ from repro_torch.backends.base import Backend, Capabilities  # noqa: F401
 from repro_torch.backends.context import ExecutionContext, Timings  # noqa
 from repro_torch.backends.cuda import CudaBackend
 from repro_torch.backends.oracle import OracleBackend
+from repro_torch.backends.sim import SimBackend
 
 _REGISTRY: dict[str, Type[Backend]] = {
     "cuda": CudaBackend,
     "oracle": OracleBackend,
+    "sim": SimBackend,
 }
 
 
@@ -61,6 +63,6 @@ def resolve_backend(backend: "str | Backend",
 
 __all__ = [
     "Backend", "Capabilities", "CudaBackend", "ExecutionContext",
-    "OracleBackend", "Timings", "available_backends", "get_backend",
-    "resolve_backend",
+    "OracleBackend", "SimBackend", "Timings", "available_backends",
+    "get_backend", "resolve_backend",
 ]

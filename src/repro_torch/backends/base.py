@@ -21,7 +21,8 @@ A backend executes PUD work at two granularities through one interface:
 All knobs live in one shared
 :class:`~repro_torch.backends.context.ExecutionContext`, including the
 device every tensor lives on.  Implementations: ``oracle`` (plain
-PyTorch reference) and ``cuda`` (hand-written CUDA kernels).
+PyTorch reference), ``sim`` (the behavioural Subarray command model)
+and ``cuda`` (hand-written CUDA kernels).
 """
 
 from __future__ import annotations
@@ -260,15 +261,27 @@ class Backend(abc.ABC):
             state[dsts] = self.majx(state[self._index(op.srcs)], x=op.x,
                                     n_act=op.n_act or None)
         elif op.kind == "NOT":
-            state[dsts] = ~state[op.srcs[0]]
+            state[dsts] = self._not(state[op.srcs[0]])
         elif op.kind == "COPY":
-            state[dsts] = state[op.srcs[0]].clone()
+            state[dsts] = self._copy(state[op.srcs[0]])
         elif op.kind == "MRC":
             state[dsts] = self.rowcopy(state[op.srcs[0]], len(op.dsts))
-        elif op.kind not in ("FRAC", "WR", "RD"):
-            # FRAC: neutral rows don't vote, value-wise a no-op; WR/RD
-            # are I/O accounting ops with no in-array effect.
+        elif op.kind == "FRAC":
+            self._frac(dsts, state)
+        elif op.kind not in ("WR", "RD"):
+            # WR/RD are I/O accounting ops with no in-array effect.
             raise ValueError(f"unknown op kind {op.kind}")
+
+    # Per-op hooks the device-model backend overrides with command-level
+    # execution (RowClone / complement copy with calibrated errors).
+    def _not(self, plane) -> torch.Tensor:
+        return ~self.words(plane)
+
+    def _copy(self, plane) -> torch.Tensor:
+        return self.words(plane).clone()
+
+    def _frac(self, dsts: torch.Tensor, state: torch.Tensor) -> None:
+        """Neutral rows don't vote: value-wise a no-op."""
 
     # ------------------------------------------- §8.1 compiled arithmetic
     def elementwise(self, op: str, a, b, tier: Optional[int] = None,
@@ -292,4 +305,4 @@ class Backend(abc.ABC):
                          x=x, n_act=n_act)
 
     def gate_not(self, p: torch.Tensor) -> torch.Tensor:
-        return ~self.words(p)
+        return self._not(p)

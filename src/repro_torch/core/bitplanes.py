@@ -126,6 +126,21 @@ def majority(planes: torch.Tensor, axis: int = 0) -> torch.Tensor:
     return _pack_word_bits((2 * count > n).to(torch.int32))
 
 
+def majority_with_ties(planes: torch.Tensor, tie_value: int,
+                       axis: int = 0) -> torch.Tensor:
+    """Majority that resolves exact ties (even N) to ``tie_value`` (0/1).
+
+    Models the sense-amp bias of §3.3 fn.5: Mfr M amplifiers are biased to
+    a fixed polarity, so an even split resolves deterministically.
+    """
+    planes = torch.movedim(planes, axis, 0)
+    n = planes.shape[0]
+    count = _word_bits(planes).sum(dim=0)
+    out = torch.where(2 * count == n, int(tie_value) & 1,
+                      (2 * count > n).to(torch.int32))
+    return _pack_word_bits(out)
+
+
 def maj3_words(a: torch.Tensor, b: torch.Tensor,
                c: torch.Tensor) -> torch.Tensor:
     """Closed-form bitwise MAJ3 on packed words: (a&b)|(b&c)|(a&c)."""
@@ -213,15 +228,18 @@ def bitcast_to_planes(x: torch.Tensor
     :func:`bitcast_from_planes` can reconstruct it.  Majority voting is
     bitwise, so any dtype can be protected by voting on its raw words.
     Narrow elements pack LSB-first into little-endian words (2 halves or
-    4 bytes per word, zero-padded), the reference package's layout.
+    4 bytes per word, zero-padded), the reference package's layout; an
+    8-byte element (float64, int64) is two words, low word first, so a
+    64-bit leaf is voted exactly (the reference narrows it to 32 bits
+    when it reads it back with 64-bit types disabled).
     """
     nbytes = x.element_size()
-    if nbytes not in (1, 2, 4):
+    if nbytes not in (1, 2, 4, 8):
         raise TypeError(f"unsupported itemsize {nbytes} for dtype {x.dtype}")
     flat = x.reshape(-1)
     if flat.dtype == torch.bool:
         flat = flat.view(torch.uint8)
-    pad = (-flat.numel()) % (4 // nbytes)
+    pad = (-flat.numel()) % max(1, 4 // nbytes)
     if pad:
         flat = torch.cat([flat, flat.new_zeros(pad)])
     return flat.contiguous().view(torch.int32), tuple(x.shape), x.dtype
@@ -232,7 +250,7 @@ def bitcast_from_planes(words: torch.Tensor, shape: tuple,
     """Inverse of :func:`bitcast_to_planes`."""
     n_elem = int(np.prod(shape)) if shape else 1
     view_dtype = torch.uint8 if dtype == torch.bool else dtype
-    if torch.empty((), dtype=view_dtype).element_size() not in (1, 2, 4):
+    if torch.empty((), dtype=view_dtype).element_size() not in (1, 2, 4, 8):
         raise TypeError(f"unsupported dtype {dtype}")
     flat = words.contiguous().view(view_dtype)[:n_elem]
     return flat.view(dtype).reshape(shape)

@@ -18,9 +18,9 @@ with documented model assumptions:
 * Patterns (Obs 9/16), temperature (Obs 3/11/12/17), VPP (Obs 4/13/18):
   multiplicative adjustments pinned to the reported deltas.
 
-The reference package also samples per-cell *stable masks* from these
-surfaces; that sampling belongs with the behavioural simulator and is not
-part of this module yet.
+The model also converts success rates into deterministic per-cell *stable
+masks* (the paper's metric counts a cell as unusable if it errs once), via a
+hash-derived latent threshold per (cell, row-group) pair.
 """
 
 from __future__ import annotations
@@ -28,7 +28,10 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import torch
+
 from repro_torch.core import calibration as cal
+from repro_torch.core import rng
 
 # ---------------------------------------------------------------------------
 # timing surfaces
@@ -238,6 +241,22 @@ class ErrorModel:
         s *= 1.0 - cal.MRC_TEMP_VARIATION_AVG_REL * (temp_c - 50.0) / 40.0
         s *= _vpp_mult("mrc", vpp_v)
         return float(min(max(s, 0.0), 1.0))
+
+    # -- stochastic realization --------------------------------------------
+    def stable_mask(
+        self, key: torch.Tensor, shape: tuple[int, ...], success: float,
+        device="cuda",
+    ) -> torch.Tensor:
+        """Deterministic per-cell stability mask (paper §3.1 metric).
+
+        A cell's latent threshold is fixed by ``key`` (derived from the
+        row-group identity), so repeated trials agree: unstable cells are
+        unstable in every trial, matching the "correct in all trials"
+        definition of success rate.  Drawn on ``device`` (a bool tensor),
+        word for word with the reference's ``jax.random.uniform``.
+        """
+        u = rng.uniform(key, shape, device=device)
+        return u < rng.f32(success)
 
 
 def expected_retries(success: float, floor: float = 1e-3) -> float:

@@ -22,15 +22,41 @@ from typing import Sequence
 import torch
 
 from repro_torch.core import bitplanes as bp
+from repro_torch.core import rng
 from repro_torch.core import tree as tree_util
 
 
+def _tensor_words(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's values as int32 words, modulo 2**32 as
+    ``np.asarray(t, np.uint32)`` takes them, on the tensor's own device:
+    uint32 is a view, narrower integers widen, anything else is masked to
+    its low 32 bits through int64."""
+    if t.dtype == torch.int32:
+        return t
+    if t.dtype == torch.uint32:
+        return t.view(torch.int32)
+    if t.dtype.itemsize < 4 and not t.dtype.is_floating_point:
+        return t.to(torch.int32)
+    return bp.wrap_i32(t.to(torch.int64) & 0xFFFFFFFF)
+
+
+def _replica_words(replicas) -> torch.Tensor:
+    """Replicas as one int32 word tensor, from whatever the reference's
+    ``jnp.asarray(replicas, jnp.uint32)`` takes: a tensor, or a sequence
+    of tensors, converts on its device (:func:`_tensor_words`); numpy
+    arrays, lists of rows and scalars go through
+    :func:`~repro_torch.core.bitplanes.from_u32` onto the CPU."""
+    if isinstance(replicas, torch.Tensor):
+        return _tensor_words(replicas)
+    rows = list(replicas)
+    if rows and all(isinstance(r, torch.Tensor) for r in rows):
+        return _tensor_words(torch.stack(rows))
+    return bp.from_u32(rows, "cpu")
+
+
 def vote_words(replicas) -> torch.Tensor:
-    """Bitwise majority over replicas, shape (X, ...) int32, odd X."""
-    if not isinstance(replicas, torch.Tensor):
-        replicas = torch.stack(list(replicas))
-    if replicas.dtype != torch.int32:
-        raise TypeError(f"packed words are int32, got {replicas.dtype}")
+    """Bitwise majority over replicas, shape (X, ...) words, odd X."""
+    replicas = _replica_words(replicas)
     x = replicas.shape[0]
     if x % 2 == 0:
         raise ValueError("XMR vote needs an odd replica count")
@@ -63,17 +89,23 @@ def vote_pytree(replicas: Sequence) -> object:
     return tree_util.unflatten(structure, leaves)
 
 
-def corrupt(x: torch.Tensor, generator: torch.Generator,
-            bit_error_rate: float) -> torch.Tensor:
+def corrupt(x: torch.Tensor, key, bit_error_rate: float) -> torch.Tensor:
     """Inject i.i.d. bit flips (SDC model) — used by tests and demos.
 
-    The flips are drawn from ``generator`` (on the CPU; the mask moves to
-    ``x``'s device), so a seed fixes them; they are not the reference's
-    ``jax.random`` draws.
+    ``key`` is either a :mod:`repro_torch.core.rng` key — the flips are
+    then drawn on ``x``'s device and equal the reference's
+    ``jax.random.bernoulli`` draws under the same key — or a
+    ``torch.Generator``, whose draws (on the generator's device, the mask
+    then moved to ``x``'s) a seed fixes but the reference does not make.
     """
     words, shape, dtype = bp.bitcast_to_planes(x)
-    flip_bits = torch.rand(words.numel() * 32, generator=generator,
-                           device=generator.device) < bit_error_rate
+    n_bits = words.numel() * 32
+    if isinstance(key, torch.Generator):
+        flip_bits = torch.rand(n_bits, generator=key,
+                               device=key.device) < bit_error_rate
+    else:
+        flip_bits = rng.bernoulli(key, bit_error_rate, (n_bits,),
+                                  device=words.device)
     flips = bp.pack(flip_bits.reshape(words.numel(), 32)).reshape(
         words.shape)
     return bp.bitcast_from_planes(words ^ flips.to(words.device), shape,

@@ -132,7 +132,7 @@ def test_bulk_entry_points_match_oracle():
 
 
 def test_registry():
-    assert available_backends() == ("cuda", "oracle")
+    assert available_backends() == ("cuda", "oracle", "sim")
     with pytest.raises(KeyError, match="cuda.*oracle"):
         get_backend("pallas")
     be = get_backend("cuda", CPU)

@@ -7,8 +7,9 @@ bit over every dtype the store protects, the same ``manifest.json`` and
 shard arrays for the same tree, checkpoints that restore across the two
 packages in both directions, the same corruption verdicts, and the same
 healed trees and unhealthy-replica counts.  The SDC model ``corrupt``
-draws its flips from a ``torch.Generator`` (not ``jax.random``), so its
-statistics are held to theory, not its flip positions.
+draws its flips either from a ``torch.Generator`` (its statistics held
+to theory) or from a threefry key, and then flips the bits the
+reference's ``jax.random.bernoulli`` flips under the same key.
 """
 
 import json
@@ -436,3 +437,112 @@ def test_two_faulty_of_three_returns_the_failed_replica(tmp_path):
     assert ref_bad == port_bad == 2
     assert (port_bits == ref_bits).all()
     assert (port_bits != bits(tree["a"])).any()    # not the healthy data
+
+
+# ------------------------------------- inputs the reference takes, 64 bits
+
+
+def _vote_inputs():
+    w = np.random.default_rng(9).integers(0, 2**32, (3, 70), dtype=np.uint32)
+    return w, {
+        "numpy": w,
+        "list_of_numpy_rows": list(w),
+        "list_of_lists": w.tolist(),
+        "int64_tensor": torch.from_numpy(w.astype(np.int64)),
+        "uint32_tensor": torch.from_numpy(w.copy()),
+        "list_of_int32_tensors": [bp.from_u32(r, "cpu") for r in w],
+        "negative_int64_tensor": torch.from_numpy(
+            w.astype(np.int64) - 2**32),
+        "wide_int64_tensor": torch.from_numpy(w.astype(np.int64) + 7 * 2**32),
+        "list_of_uint32_tensors": [torch.from_numpy(r.copy()) for r in w],
+    }
+
+
+@pytest.mark.parametrize("kind", sorted(_vote_inputs()[1]))
+def test_vote_words_takes_what_the_reference_takes(kind):
+    """``vote_words`` reads numpy arrays, lists of rows and uint32 or
+    int64 tensors as the reference's ``jnp.asarray(.., jnp.uint32)``
+    does (it raised ``TypeError`` on all but int32 tensors before)."""
+    w, inputs = _vote_inputs()
+    want = np.asarray(ref_tmr.vote_words(w if kind != "list_of_lists"
+                                         else w.tolist()))
+    got = tmr.vote_words(inputs[kind])
+    assert got.dtype == torch.int32 and (bp.to_u32(got) == want).all()
+
+
+@pytest.mark.parametrize("dtype", [np.int8, np.int16, np.uint8, np.bool_])
+def test_vote_words_narrow_tensors_wrap_as_numpy(dtype):
+    """Integer tensors narrower than a word (negative values too) vote as
+    their ``np.asarray(.., np.uint32)`` words."""
+    w = np.random.default_rng(3).integers(-128, 128, (3, 50)).astype(dtype)
+    want = np.asarray(ref_tmr.vote_words(w.astype(np.uint32)))
+    got = tmr.vote_words(torch.from_numpy(w))
+    assert got.dtype == torch.int32 and (bp.to_u32(got) == want).all()
+
+
+@pytest.mark.parametrize("dtype", ["uint32", "int64"])
+def test_vote_words_converts_tensors_where_they_lie(dtype, monkeypatch):
+    """uint32 and int64 replica tensors become words on their own device:
+    no ``.cpu()``, ``.numpy()`` or upload through ``from_u32`` (the card's
+    twin of this test is in ``test_torch_cuda.py``)."""
+    w = np.random.default_rng(8).integers(0, 2**32, (3, 97), dtype=np.uint32)
+    reps = torch.from_numpy(w.copy() if dtype == "uint32" else
+                            w.astype(np.int64) - 2**32)
+    want = np.asarray(ref_tmr.vote_words(w))
+
+    def host_copy(*a, **kw):
+        raise AssertionError("the replicas went through the host")
+
+    with monkeypatch.context() as m:
+        for obj, name in ((torch.Tensor, "cpu"), (torch.Tensor, "numpy"),
+                          (bp, "from_u32")):
+            m.setattr(obj, name, host_copy)
+        got = tmr.vote_words(reps)
+    assert got.dtype == torch.int32 and (bp.to_u32(got) == want).all()
+
+
+WIDE_TREE = {"x": np.array([1 + 2**-40], np.float64),
+             "i": np.array([2**40 + 1], np.int64)}
+
+
+@pytest.mark.parametrize("use_kernel", [False, True],
+                         ids=["plain", "kernel"])
+def test_64bit_leaves_restore_exactly(tmp_path, use_kernel):
+    """A float64 and an int64 leaf, saved as 3 replicas with replica 1
+    corrupted: the port's TMR restore votes each 8-byte element as two
+    words and returns both leaves exactly, with their dtypes.  The
+    reference (ROADMAP queue 3) narrows both silently, with 64-bit types
+    disabled: float32 [1.0] and int32 [1]."""
+    for sub, store, tree in (("ref", ref_store, WIDE_TREE),
+                             ("port", tmr_store, as_torch(WIDE_TREE))):
+        store.save(tree, str(tmp_path / sub), 4, replicas=3)
+        step_dir = str(tmp_path / sub / "replica_1" / "step_00000004")
+        for key in ("leaf_0", "leaf_1"):
+            rewrite_leaf(step_dir, key, np.random.default_rng(5))
+    got, step, bad = tmr_store.restore(as_torch(WIDE_TREE),
+                                       str(tmp_path / "port"),
+                                       use_kernel=use_kernel)
+    assert (step, bad) == (4, 1)
+    assert_tree_bits(got, WIDE_TREE)
+    assert got["x"].dtype == torch.float64 and got["i"].dtype == torch.int64
+    want, _, ref_bad = ref_store.restore(WIDE_TREE, str(tmp_path / "ref"),
+                                         use_kernel=use_kernel)
+    assert ref_bad == 1
+    assert want["x"].dtype == jnp.float32 and want["i"].dtype == jnp.int32
+    assert float(want["x"][0]) == 1.0 and int(want["i"][0]) == 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8", "int32"])
+def test_corrupt_key_path_equals_reference(dtype):
+    """``corrupt`` under a :mod:`repro_torch.core.rng` key flips the
+    bits ``repro.pud.tmr.corrupt`` flips under the same jax key."""
+    from repro_torch.core import rng as port_rng
+
+    clean = rand_np(np.random.default_rng(2), dtype, (37, 5))
+    for seed in (0, 11):
+        want = ref_tmr.corrupt(jnp.asarray(clean), jax.random.PRNGKey(seed),
+                               0.05)
+        got = tmr.corrupt(to_torch(clean), port_rng.PRNGKey(seed), 0.05)
+        assert got.dtype == to_torch(clean).dtype
+        assert (bits(got) == bits(want)).all()
+        assert (bits(got) != bits(clean)).any()

@@ -514,3 +514,161 @@ def test_tmr_store_restores_a_tree_on_the_card(cuda_device, tmp_path):
     again, _ = ckpt.restore(tree, str(tmp_path / "replica_2"))
     for a, b in zip(tree_util.flatten(again)[0], leaves):
         assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+# ------------------------------------------- the device model and the sweep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(), (7,), (3, 1001), (2**20 + 5,)],
+                         ids=str)
+def test_rng_on_the_card_equals_the_cpu(cuda_device, shape):
+    """Threefry words and floats are the same on the card as on the CPU
+    (the CPU's are held to jax in ``test_torch_rng.py``)."""
+    from repro_torch.core import rng
+
+    key = rng.fold_in(rng.PRNGKey(3), 77)
+    for lo, hi in ((0.0, 1.0), (-0.4, 0.4)):
+        card = rng.uniform(key, shape, lo, hi, device=cuda_device)
+        assert card.device.type == "cuda"
+        assert torch.equal(card.cpu().view(torch.int32),
+                           rng.uniform(key, shape, lo, hi, "cpu").view(
+                               torch.int32))
+    assert torch.equal(rng.random_bits(key, shape, cuda_device).cpu(),
+                       rng.random_bits(key, shape, "cpu"))
+    assert torch.equal(rng.bernoulli(key, 0.3, shape, cuda_device).cpu(),
+                       rng.bernoulli(key, 0.3, shape, "cpu"))
+
+
+def _subarray_run(device, ideal):
+    from repro_torch.core import majx as mj
+    from repro_torch.core import rowcopy as rc
+    from repro_torch.core.subarray import DeviceProfile, Subarray
+
+    rng = np.random.default_rng(4)
+    sa = Subarray(DeviceProfile.mfr_h(), cols=2048 * 32, seed=5,
+                  ideal=ideal, device=device)
+    sa.fill("random")
+    outs = []
+    for i, x in enumerate((3, 5, 7, 9)):
+        ops = rng.integers(0, 2**32, (x, sa.n_words), dtype=np.uint32)
+        outs.append(mj.majx(sa, list(ops), 32, base_row=32 * i).cpu())
+    src = rng.integers(0, 2**32, sa.n_words, dtype=np.uint32)
+    rc.multi_rowcopy(sa, src, 32, base_row=128)
+    rc.frac_init(sa, [300, 301])
+    rc.rowclone(sa, 5, 400)
+    return outs, sa.planes.cpu(), sa.frac_rows.copy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ideal", [True, False],
+                         ids=["ideal", "stochastic"])
+def test_subarray_on_the_card_equals_the_cpu(cuda_device, ideal):
+    card = _subarray_run("cuda", ideal)
+    host = _subarray_run("cpu", ideal)
+    for a, b in zip(card[0], host[0]):
+        assert torch.equal(a, b)
+    assert torch.equal(card[1], host[1]) and (card[2] == host[2]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ideal", [True, False],
+                         ids=["ideal", "stochastic"])
+def test_sim_backend_on_the_card_equals_the_cpu(cuda_device, ideal):
+    outs = []
+    for dev in ("cuda", "cpu"):
+        be = get_backend("sim", ExecutionContext(ideal=ideal, seed=3,
+                                                 device=dev))
+        planes = _words(1, 5, 3, 300, device=dev)
+        got = [be.majx(planes), be.rowcopy(planes[0], 9),
+               be.add_planes(planes[:4], planes[1:])]
+        outs.append(([g.cpu() for g in got], be.energy_nj_total))
+        assert all(g.device.type == dev for g in got)
+    (card, e_card), (host, e_host) = outs
+    assert all(torch.equal(a, b) for a, b in zip(card, host))
+    assert e_card == e_host
+
+
+@pytest.mark.cuda
+def test_sweep_on_the_card_equals_the_cpu(cuda_device, tmp_path):
+    """The same stochastic grid on the card and the CPU gives the same
+    records; on the card each multi-point cuda chunk is one MAJX launch
+    and each cuda MRC point one fan-out launch."""
+    from repro_torch.sweep import SweepSpec, planner, run_sweep
+
+    spec = SweepSpec(name="card", backends=("sim", "cuda", "oracle"),
+                     x_values=(3, 5), n_act=(8, 32),
+                     patterns=("random", "0xAA/0x55"), rows=4, words=512,
+                     chunk=4)
+    mrc = SweepSpec(name="card-mrc", op="mrc", backends=("sim", "cuda"),
+                    n_act=(4, 32), patterns=("random", "0xFF"), words=512)
+    m0, f0 = majx_ops.launches, rowcopy_ops.launches
+    card = run_sweep(spec, str(tmp_path / "card"), device="cuda").records
+    fused = sum(1 for c in planner.plan(spec)
+                if c.backend == "cuda" and len(c.points) > 1)
+    assert majx_ops.launches - m0 == fused > 0
+    card_mrc = run_sweep(mrc, str(tmp_path / "card"), device="cuda").records
+    assert rowcopy_ops.launches - f0 == 4
+    assert card == run_sweep(spec, str(tmp_path / "cpu"),
+                             device="cpu").records
+    assert card_mrc == run_sweep(mrc, str(tmp_path / "cpu"),
+                                 device="cpu").records
+    assert all(r["success"] == 1.0 for r in card + card_mrc
+               if r["backend"] != "sim")
+
+
+@pytest.mark.cuda
+def test_pud_device_and_erase_on_the_card(cuda_device):
+    from repro_torch.pud import secure_erase
+    from repro_torch.pud.device import DeviceConfig, PUDDevice
+
+    outs = []
+    for dev in ("cuda", "cpu"):
+        d = PUDDevice(DeviceConfig(n_banks=2, cols=4096, device=dev), seed=1)
+        ops = [_words(i, 128, device=dev) for i in range(3)]
+        got = d.majx(1, ops, 8).cpu()
+        d.broadcast_fanout(0, ops[0], 40)
+        t = secure_erase.erase_subarray(d.subarray(1), 0xA5A5A5A5)
+        outs.append((got, d.subarray(0).planes.cpu(),
+                     d.subarray(1).planes.cpu(), t, d.stats()))
+    (g1, p1, q1, t1, s1), (g2, p2, q2, t2, s2) = outs
+    assert torch.equal(g1, g2) and torch.equal(p1, p2)
+    assert torch.equal(q1, q2) and t1 == t2 and s1 == s2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["uint32", "int64"])
+def test_vote_words_converts_on_the_card(cuda_device, dtype, monkeypatch):
+    """uint32 and int64 replicas on the card become words there: no
+    copy to the host and back on the TMR restore path."""
+    from repro_torch.pud import tmr
+
+    w = np.random.default_rng(8).integers(0, 2**32, (3, 4097),
+                                          dtype=np.uint32)
+    reps = torch.from_numpy(w if dtype == "uint32" else
+                            w.astype(np.int64) - 2**32).to(cuda_device)
+    want = tmr.vote_words(bp.from_u32(w, "cpu"))
+
+    def host_copy(*a, **kw):
+        raise AssertionError("the replicas went through the host")
+
+    with monkeypatch.context() as m:
+        for obj, name in ((torch.Tensor, "cpu"), (torch.Tensor, "numpy"),
+                          (bp, "from_u32")):
+            m.setattr(obj, name, host_copy)
+        got = tmr.vote_words(reps)
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_spice_study_on_the_card_equals_the_cpu(cuda_device):
+    """The §7.2 Monte-Carlo study gives the same bits on the card as on
+    the CPU (the CPU's is held to the reference in ``test_torch_sim.py``):
+    its sums fold in one order, and its means divide on the device."""
+    from repro_torch.core import chargeshare as cs
+    from repro_torch.core import rng
+
+    key = rng.PRNGKey(0)
+    assert cs.spice_study(key, 3001, cuda_device) == \
+        cs.spice_study(key, 3001, "cpu")

@@ -561,12 +561,18 @@ def test_analyzer_cli_matches_reference():
 
 
 def test_analyzer_cli_sweep_waits():
+    """``--sweep`` no longer waits for the sweep port: it certifies the
+    smoke sweep's chunk programs, and ``--all`` includes them, with the
+    reference's lines and digests."""
+    rc_ref, ref = _cli(ref_cli.main, ["--sweep"])
     rc, out = _cli(port_cli.main, ["--sweep"])
-    assert rc == 2 and "item 9" in out[-1] and "sweep/" in out[-1]
-    rc, out = _cli(port_cli.main, ["--all", "--device", "cpu",
-                                   "--golden-dir", GOLDEN_DIR])
-    assert rc == 0 and "sweep pending" in out[-1]
-    assert not any(line.startswith("OK   sweep") for line in out)
+    assert rc == rc_ref == 0 and out == ref
+    assert any(line.startswith("OK   sweep/smoke/chunk-") for line in out)
+    argv = ["--all", "--golden-dir", GOLDEN_DIR]
+    rc_ref, ref = _cli(ref_cli.main, argv)
+    rc, out = _cli(port_cli.main, argv + ["--device", "cpu"])
+    assert rc == rc_ref == 0 and out == ref
+    assert out[-1] == "analyze: all gates passed"
 
 
 def test_serve_tick_programs_cross_over():
