@@ -18,8 +18,10 @@ sessions.  The fifth is the TMR checkpoint store, which votes replicas
 of a tree on the card with the MAJX kernel.  The sixth is the paper's
 own subject: the behavioural device model (``Subarray``, the ``sim``
 backend, threefry draws word for word with jax) and the
-characterization sweep (``run_sweep`` and its CLI).  Phases, one JSON
-line each:
+characterization sweep (``run_sweep`` and its CLI).  The seventh is LM
+serving: ``Engine.generate`` over models at their published widths,
+whose ``heal_params`` / ``verify_params`` run through the service.
+Phases, one JSON line each:
 
 1. build — compile the CUDA kernels of ``src/repro_torch/csrc`` with
    nvcc (all sources at once) and print the card's name and power limit;
@@ -80,9 +82,24 @@ line each:
    repro_torch.sweep.run --smoke`` (twice, the second
    ``--expect-cached``) and ``--adaptive``, and ``python -m
    repro_torch.analyze --sweep``, in process;
-9. the kernels line, then ``{"ok": true, ...}`` as the last line.
+9. lm_serve — chatglm3-6b (6.24 B params, bf16) and musicgen-medium
+   (1.38 B, 4 codebooks) at full width and depth, random weights from a
+   seed: ``Engine.generate`` serves 8 requests (prompt 16, 16 new
+   tokens, 64 cache slots), each prefill and decode step timed beside
+   the step's bytes bound, and one decode step profiled for the card's
+   busy share; chatglm3-6b prefills 8,448 tokens on the streaming
+   attention path, held to the dense path; musicgen-medium's params
+   (about 169k rows of 4096 words) are healed from three replicas, one
+   with known flips in six leaves, through a shared ``PudService`` (one
+   MAJX and one mismatch launch: bit for bit, ``fixed_bits`` equal to
+   the flips, the heal's wall split by step), then verified against the
+   clean and the bad replica (exact rates); each model at 2 layers is
+   held in float32 against the CPU (prefill and teacher-forced decode
+   logits) and in bfloat16 against float32; MAJX and the mismatch count
+   at the heal's shape against their plain versions and bounds;
+10. the kernels line, then ``{"ok": true, ...}`` as the last line.
 
-Every kernel's launch count is zeroed just before phases 3-8 and read
+Every kernel's launch count is zeroed just before phases 3-9 and read
 just after each: the launches must add up to the backend's dispatches
 (the store's: one MAJX launch a leaf), and every kernel of the phase's
 path must have launched.
@@ -112,6 +129,7 @@ WORDS = 2**18            # 128 subarrays x 2048 words (8 KiB rank row)
 RANK_WORDS = 2048        # one 8 KiB rank row
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+BF16_OPS_PER_S = 989e12    # dense bfloat16 tensor-core peak, same sheet
 #: The guide's table lists no int32 logic rate; its float32 rate outside
 #: the tensor cores is the nearest, and the bytes bound dominates anyway.
 CORE_OPS_PER_S = 67e12
@@ -1892,6 +1910,486 @@ def sweep_in(torch, kernel_mods, root: str) -> dict:
     return launches
 
 
+
+# ------------------------------------------------------------ lm_serve
+#: The two models served at their published widths and full depth:
+#: chatglm3-6b (dense, GQA kv=2, partial RoPE) and musicgen-medium
+#: (audio, 4 codebooks).  ``LM_SMOKE`` swaps in their smoke twins for a
+#: CPU rehearsal.
+LM_ARCHS = ("chatglm3-6b", "musicgen-medium")
+LM_SMOKE = False
+LM_SEED = 0
+LM_REQUESTS = 8          # requests a generate call serves
+LM_PROMPT = 16           # prompt tokens a request
+LM_NEW = 16              # tokens generated a request
+LM_MAX_SEQ = 64          # KV cache slots
+LM_LONG = 8448           # one prefill above the streaming threshold (8192)
+LM_CHECK_LAYERS = 2      # depth of the card-vs-CPU float32 check
+LM_CHECK_BATCH = 2       # requests in that check
+LM_TF_STEPS = 4          # teacher-forced decode steps in that check
+#: Largest |difference| allowed, as a share of the largest |logit|:
+#: float32 on the card against float32 on the CPU (both exact products,
+#: TF32 off; only the summation order differs) ...
+LM_F32_TOL = 1e-4
+#: ... bfloat16 against float32 on the card (an 8-bit significand; the
+#: CPU tests see about 1e-2 at smoke size, 2 layers) ...
+LM_BF16_TOL = 3e-2
+#: ... and the streaming prefill against the dense one, both bfloat16
+#: over all 28 layers (a CPU rehearsal at smoke widths, 28 layers and
+#: 8448 tokens gave 1.9e-2).
+LM_LONG_TOL = 5e-2
+#: Bits flipped in the bad replica of the heal: (leaf path, count).
+LM_FLIPS = ((("embed", "tok"), 7), (("blocks", "attn", "wq"), 5),
+            (("blocks", "ln1"), 3), (("blocks", "mlp", "w_down"), 11),
+            (("head", "w"), 2), (("ln_f",), 1))
+
+
+def progress(what: str, t0: float) -> None:
+    """A line on standard error as each step of a long phase ends."""
+    print(f"chip_smoke: {what} done at {time.perf_counter() - t0:.1f} s",
+          file=sys.stderr, flush=True)
+
+
+def lm_config(arch: str, **changes):
+    import dataclasses as dc
+
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(arch, smoke=LM_SMOKE)
+    return dc.replace(cfg, **changes) if changes else cfg
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.core import tree as tree_util
+
+    return sum(t.numel() * t.element_size()
+               for t in tree_util.flatten(tree)[0])
+
+
+def lm_prompts(cfg, n: int, length: int, seed: int = LM_SEED):
+    rng = np.random.default_rng(seed)
+    shape = (length, cfg.n_codebooks) if cfg.family == "audio" else (length,)
+    return [rng.integers(0, cfg.vocab_size, shape, dtype=np.int32)
+            for _ in range(n)]
+
+
+def decode_bound(cfg, params, batch: int, max_seq: int) -> dict:
+    """The least time one decode step of ``batch`` tokens could take:
+    every weight read once (of the embedding tables only the rows the
+    step looks up), the whole KV cache read once and one slot a layer
+    written, against 2 * weights * batch operations at the bfloat16
+    tensor-core peak."""
+    from repro_torch.core import tree as tree_util
+
+    emb = params["embed"]["tok"]
+    n_lookups = batch * (cfg.n_codebooks or 1)
+    weights = tree_bytes(params) - emb.numel() * emb.element_size() \
+        + n_lookups * cfg.d_model * emb.element_size()
+    kv_slot = 2 * cfg.n_kv_heads * cfg.hd * emb.element_size()
+    kv = cfg.n_layers * batch * (max_seq + 1) * kv_slot
+    n_params = sum(t.numel() for t in tree_util.flatten(params)[0])
+    t_bytes = (weights + kv) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * n_params * batch / BF16_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "weight_bytes": weights, "kv_bytes": kv}
+
+
+def lm_generate(torch, eng, cfg) -> dict:
+    """``Engine.generate`` over LM_REQUESTS requests (after a one-request
+    warm-up), each prefill and decode step timed to the card's end."""
+    from repro_torch.serve.engine import Request
+
+    prompts = lm_prompts(cfg, LM_REQUESTS, LM_PROMPT)
+    eng.generate([Request(rid=-1, prompt=prompts[0], max_new_tokens=2)])
+    steps = {"prefill": [], "decode": []}
+
+    def timed(fn, key):
+        def run(*args):
+            _sync(torch)
+            t0 = time.perf_counter()
+            out = fn(*args)
+            _sync(torch)
+            steps[key].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    eng._prefill = timed(eng._prefill, "prefill")
+    eng._decode = timed(eng._decode, "decode")
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=LM_NEW)
+            for i, p in enumerate(prompts)]
+    t0 = time.perf_counter()
+    done = eng.generate(reqs)
+    wall = time.perf_counter() - t0
+    del eng._prefill, eng._decode
+    tok_shape = (cfg.n_codebooks,) if cfg.family == "audio" else ()
+    for r in done:
+        toks = np.array(r.out_tokens)
+        check(r.done and toks.shape == (LM_NEW,) + tok_shape and
+              toks.min() >= 0 and toks.max() < cfg.vocab_size,
+              f"{cfg.name}: request {r.rid} gave tokens of shape "
+              f"{toks.shape}, range [{toks.min()}, {toks.max()}]")
+    n_tok = sum(len(r.out_tokens) for r in done)
+    check(len(steps["prefill"]) == 1 and len(steps["decode"]) == LM_NEW - 1,
+          f"{cfg.name}: {steps} steps")
+    return {"requests": len(done), "tokens": n_tok, "wall_s": wall,
+            "tokens_per_s": n_tok / wall,
+            "prefill_ms": steps["prefill"][0] * 1e3,
+            "decode_ms_median": statistics.median(steps["decode"]) * 1e3,
+            "decode_ms": [s * 1e3 for s in steps["decode"]],
+            "first_tokens": [int(np.asarray(t).flat[0])
+                             for t in done[0].out_tokens[:8]]}
+
+
+def decode_profile(torch, eng, cfg) -> dict:
+    """The card's busy share over one decode step of LM_REQUESTS tokens
+    (a ``torch.profiler`` trace: device time of every kernel and copy,
+    one stream, over the step's wall)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prompts = lm_prompts(cfg, LM_REQUESTS, LM_PROMPT)
+    toks = eng._tokens(np.stack(prompts))
+    _, cache = eng._prefill(eng.params, {"tokens": toks})
+    step = toks[:, -1:]
+    eng._decode(eng.params, step, cache)
+    _sync(torch)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng._decode(eng.params, step, cache)
+        _sync(torch)
+        wall = time.perf_counter() - t0
+    busy, n_ops = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            busy += getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0)) / 1e6
+            n_ops += e.count
+    return {"profiled_step_s": wall, "device_busy_s": busy or None,
+            "device_busy_share": busy / wall if busy else None,
+            "device_ops": n_ops}
+
+
+def rel_err(torch, got, want) -> float:
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def lm_check_depth2(torch, arch: str) -> dict:
+    """At full width and LM_CHECK_LAYERS layers, with one set of weights:
+    the card's float32 prefill and teacher-forced decode logits against
+    the CPU's, and the card's bfloat16 logits against its float32 ones."""
+    from repro_torch.models import model as M
+
+    cfgs = {dt: lm_config(arch, n_layers=LM_CHECK_LAYERS, dtype=dt)
+            for dt in ("float32", "bfloat16")}
+    prompts = np.stack(lm_prompts(cfgs["float32"], LM_CHECK_BATCH,
+                                  LM_PROMPT, seed=LM_SEED + 1))
+    forced = lm_prompts(cfgs["float32"], LM_TF_STEPS, LM_CHECK_BATCH,
+                        seed=LM_SEED + 2)
+
+    def run(params, cfg, device):
+        """Prefill logits, then each teacher-forced step's logits."""
+        out = []
+        with torch.inference_mode():
+            toks = torch.as_tensor(prompts, dtype=torch.int64, device=device)
+            logits, cache = M.prefill(params, {"tokens": toks}, cfg,
+                                      LM_MAX_SEQ)
+            out.append(logits)
+            for step in forced:
+                tok = torch.as_tensor(step, dtype=torch.int64,
+                                      device=device)[:, None]
+                logits, cache = M.decode(params, tok, cache, cfg)
+                out.append(logits)
+        return out
+
+    # Equal seeds draw equal float32 normals: the bfloat16 weights are
+    # the float32 ones rounded, the norms equal.
+    p32, _ = M.init(LM_SEED, cfgs["float32"], device=DEVICE)
+    card = run(p32, cfgs["float32"], DEVICE)
+    host = run(tree_map(lambda t: t.cpu(), p32), cfgs["float32"], "cpu")
+    del p32
+    p16, _ = M.init(LM_SEED, cfgs["bfloat16"], device=DEVICE)
+    low = run(p16, cfgs["bfloat16"], DEVICE)
+    del p16
+    f32 = [rel_err(torch, a, b) for a, b in zip(card, host)]
+    bf16 = [rel_err(torch, a, b) for a, b in zip(low, card)]
+    check(all(np.isfinite(card[i].float().cpu().numpy()).all()
+              for i in range(len(card))), f"{arch}: non-finite logits")
+    check(max(f32) <= LM_F32_TOL, f"{arch}: float32 logits on the card "
+          f"differ from the CPU's by {f32} of the largest")
+    check(max(bf16) <= LM_BF16_TOL, f"{arch}: bfloat16 logits differ from "
+          f"float32 by {bf16} of the largest")
+    return {"layers": LM_CHECK_LAYERS, "logit_shape": list(card[0].shape),
+            "f32_card_vs_cpu": f32, "f32_tol": LM_F32_TOL,
+            "bf16_vs_f32": bf16, "bf16_tol": LM_BF16_TOL}
+
+
+def lm_long_prefill(torch, params, cfg) -> dict:
+    """One LM_LONG-token prefill, which takes the streaming attention
+    path, against the dense path (``FORCE_DENSE``) on the same weights:
+    the last position's logits."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import model as M
+
+    toks = torch.as_tensor(lm_prompts(cfg, 1, LM_LONG)[0][None],
+                           dtype=torch.int64, device=DEVICE)
+    out, secs = {}, {}
+    with torch.inference_mode():
+        for path in ("streaming", "dense"):
+            attn.FORCE_DENSE = path == "dense"
+            try:
+                _sync(torch)
+                t0 = time.perf_counter()
+                out[path], _ = M.prefill(params, {"tokens": toks}, cfg,
+                                         LM_LONG)
+                _sync(torch)
+                secs[path] = time.perf_counter() - t0
+            finally:
+                attn.FORCE_DENSE = False
+    err = rel_err(torch, out["streaming"], out["dense"])
+    check(bool(torch.isfinite(out["streaming"]).all()),
+          "streaming prefill: non-finite logits")
+    check(err <= LM_LONG_TOL, f"streaming prefill differs from dense by "
+          f"{err} of the largest logit")
+    return {"tokens": LM_LONG, "streaming_s": secs["streaming"],
+            "dense_s": secs["dense"], "streaming_vs_dense": err,
+            "tol": LM_LONG_TOL}
+
+
+@contextlib.contextmanager
+def spans(torch, targets):
+    """Time every call of each ``(name, owner, attribute)`` target (the
+    card synchronised before and after) into the yielded dict of
+    seconds; the attributes are restored on exit."""
+    secs = {name: 0.0 for name, _, _ in targets}
+    saved = []
+    start = time.perf_counter()
+    for name, owner, attr in targets:
+        fn = getattr(owner, attr)
+        saved.append((owner, attr, owner.__dict__[attr]))
+
+        def wrapped(*args, _fn=fn, _name=name, **kw):
+            _sync(torch)
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kw)
+            finally:
+                _sync(torch)
+                secs[_name] += time.perf_counter() - t0
+                progress(f"span {_name}", start)
+        setattr(owner, attr, wrapped)
+    try:
+        yield secs
+    finally:
+        for owner, attr, fn in reversed(saved):
+            setattr(owner, attr, fn)
+
+
+def flip_leaf_bits(torch, leaf, n: int, seed: int):
+    """``leaf`` (a tensor) with ``n`` distinct bits flipped, and their
+    count."""
+    out = leaf.clone()
+    words = out.view(-1).view(torch.int32) if out.element_size() == 4 \
+        else out.view(-1).view(torch.int16)
+    bits = out.element_size() * 8
+    pos = np.random.default_rng(seed).choice(words.numel() * bits, n,
+                                             replace=False)
+    for p in pos.tolist():
+        i, b = divmod(p, bits)
+        mask = (1 << b) - (1 << bits if b == bits - 1 else 0)
+        words[i] ^= mask
+    return out
+
+
+def lm_heal(torch, eng, cfg) -> dict:
+    """``heal_params`` over three replicas, the first with LM_FLIPS bits
+    flipped in six leaves; the healed params must equal the clean ones
+    bit for bit and ``fixed_bits`` the flips.  Then ``verify_params``
+    against the clean and the bad replica.  The heal's wall is split by
+    timing each step it takes (the card synchronised around each)."""
+    from repro_torch.backends.cuda import CudaBackend
+    from repro_torch.core import bitplanes as bp
+    from repro_torch.core import tree as tree_util
+    from repro_torch.kernels.majx import ops as majx_ops
+    from repro_torch.kernels.mismatch import ops as mismatch_ops
+    from repro_torch.pud import offload
+    from repro_torch.serve.batcher import Batcher
+    from repro_torch.serve.engine import Engine
+    from repro_torch.session.builder import SessionProgram
+    from repro_torch.session.cache import CompileCache
+
+    clean = eng.params
+    bad = tree_map(lambda t: t, clean)
+    n_flips = 0
+    for i, (path, n) in enumerate(LM_FLIPS):
+        node = bad
+        for k in path[:-1]:
+            node = node[k]
+        node[path[-1]] = flip_leaf_bits(torch, node[path[-1]], n, seed=i)
+        n_flips += n
+    leaves = tree_util.flatten(clean)[0]
+    total = sum(-(-t.numel() * t.element_size() // 4) for t in leaves)
+    rows = -(-total // 4096)
+    targets = [
+        ("pack", Engine, "_pack_pytree"),
+        ("heal_tick", Batcher, "_execute_heal"),
+        ("validate", SessionProgram, "build"),
+        ("image_build", SessionProgram, "initial_state"),
+        ("schedule", CompileCache, "schedule_for"),
+        ("certify", CompileCache, "certificate_for"),
+        ("offload_plan", offload, "plan_program"),
+        ("fused_run", CudaBackend, "run_fused"),
+        ("upload", bp, "from_u32"),
+        ("majx", majx_ops, "majx_batch"),
+        ("mismatch", mismatch_ops, "mismatch_count"),
+    ]
+    _sync(torch)
+    t0 = time.perf_counter()
+    with spans(torch, targets) as split:
+        fixed = eng.heal_params([bad, clean, clean])
+    _sync(torch)
+    heal_s = time.perf_counter() - t0
+    split["other"] = heal_s - split["pack"] - split["heal_tick"]
+    split["program_build"] = split["heal_tick"] - sum(
+        split[k] for k in ("validate", "image_build", "schedule",
+                           "certify", "offload_plan", "fused_run",
+                           "mismatch"))
+    healed = tree_util.flatten(eng.params)[0]
+    check(all(a.dtype == b.dtype and a.shape == b.shape and
+              torch.equal(a.reshape(-1).view(torch.uint8),
+                          b.reshape(-1).view(torch.uint8))
+              for a, b in zip(healed, leaves)),
+          "heal: the healed params differ from the clean ones")
+    check(fixed == n_flips, f"heal fixed {fixed} bits, {n_flips} planted")
+    progress("heal", t0)
+    eng.params = clean
+    t0 = time.perf_counter()
+    same = eng.verify_params(clean)
+    verify_s = time.perf_counter() - t0
+    progress("verify", t0)
+    check(same == 1.0, f"verify_params(clean) = {same}")
+    rate = eng.verify_params(bad)
+    want = 1.0 - n_flips / max(total * 32, 1)
+    check(rate == want, f"verify_params(bad) = {rate}, want {want}")
+    del bad
+    return {"rows": rows, "words": rows * 4096, "replicas": 3,
+            "params_bytes": tree_bytes(clean), "flips": n_flips,
+            "fixed_bits": fixed, "heal_s": heal_s, "split_s": split,
+            "verify_s": verify_s, "verify_bad": rate}
+
+
+def lm_kernels(torch, timer, rows: int) -> dict:
+    """MAJX and the mismatch count at the heal's shape (3 x rows x 4096
+    words, and 2 x rows x 4096) against their plain versions and their
+    bytes bounds (after the launch count is read: not counted)."""
+    from repro_torch.core import bitplanes as bp
+    from repro_torch.kernels.majx import ops as majx_ops
+    from repro_torch.kernels.mismatch import ops as mismatch_ops
+    from repro_torch.kernels.mismatch.ref import mismatch_count_ref
+
+    g = torch.Generator(device=DEVICE).manual_seed(LM_SEED)
+    planes = torch.randint(-2**31, 2**31, (3, rows, 4096), generator=g,
+                           device=DEVICE, dtype=torch.int32)
+    words = rows * 4096
+    got = majx_ops.majx(planes)
+    want = bp.maj3_words(*planes)
+    majx = {"shape": [3, rows, 4096],
+            "max_abs_err": max_abs_err(torch, got, want)}
+    check(majx["max_abs_err"] == 0, "MAJX at model size != plain MAJ3")
+    del want
+    majx["ms"] = timer(lambda: majx_ops.majx(planes), reps=5, warmup=1)
+    majx["plain_ms"] = timer(lambda: bp.maj3_words(*planes), reps=3,
+                             warmup=1)
+    majx["bound_ms"], majx["bound_by"] = bound(4 * words * 4,
+                                               words * vote_ops(3))
+    a, b = planes[0].clone(), got
+    del planes
+    n = int(mismatch_ops.mismatch_count(a, b))
+    ref = int(mismatch_count_ref(a, b))
+    mism = {"shape": [2, rows, 4096], "count": n,
+            "max_abs_err": abs(n - ref)}
+    check(n == ref, f"mismatch at model size {n} != plain {ref}")
+    mism["ms"] = timer(lambda: mismatch_ops.mismatch_count(a, b), reps=5,
+                       warmup=1)
+    mism["plain_ms"] = timer(lambda: mismatch_count_ref(a, b), reps=3,
+                             warmup=1)
+    mism["bound_ms"], mism["bound_by"] = bound(2 * words * 4, 3 * words)
+    return {"majx": majx, "mismatch": mism}
+
+
+def phase_lm_serve(torch, kernel_mods, timer) -> dict:
+    """LM serving at full width: chatglm3-6b and musicgen-medium served by
+    ``Engine.generate``; chatglm3-6b's streaming prefill against the
+    dense one; musicgen-medium's params healed and verified through the
+    service (MAJX and mismatch launches); each model at 2 layers on the
+    card against the CPU; returns each kernel's launches."""
+    from repro_torch.core import tree as tree_util
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import Engine
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: float32 checks would not be float32")
+    svc = new_service(pool_size=1, tenant_rows=2**22)
+    zero_launches(kernel_mods)
+    start = sum(s.dispatch_count for s in svc.sessions)
+    report, heal_rows = {}, None
+    t_phase = time.perf_counter()
+    for arch in LM_ARCHS:
+        cfg = lm_config(arch)
+        _sync(torch)
+        t0 = time.perf_counter()
+        params, _ = M.init(LM_SEED, cfg, device=DEVICE)
+        _sync(torch)
+        progress(f"{arch}: init", t_phase)
+        rep = {"init_s": time.perf_counter() - t0,
+               "params": sum(t.numel() for t in
+                             tree_util.flatten(params)[0]),
+               "params_bytes": tree_bytes(params)}
+        eng = Engine(params, cfg, max_seq=LM_MAX_SEQ, pud_service=svc,
+                     tenant=arch, device=DEVICE)
+        rep["generate"] = lm_generate(torch, eng, cfg)
+        rep["decode_bound"] = decode_bound(cfg, params, LM_REQUESTS,
+                                           LM_MAX_SEQ)
+        progress(f"{arch}: generate", t_phase)
+        if DEVICE == "cuda":
+            rep["decode_profile"] = decode_profile(torch, eng, cfg)
+            progress(f"{arch}: decode profile", t_phase)
+        if cfg.family == "dense":
+            rep["long_prefill"] = lm_long_prefill(torch, params, cfg)
+            progress(f"{arch}: long prefill", t_phase)
+        if cfg.family == "audio":
+            rep["heal"] = lm_heal(torch, eng, cfg)
+            heal_rows = rep["heal"]["rows"]
+            progress(f"{arch}: heal and verify", t_phase)
+        del eng, params
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        rep["depth2"] = lm_check_depth2(torch, arch)
+        progress(f"{arch}: 2-layer checks", t_phase)
+        report[arch] = rep
+        emit({"phase": "lm_serve", "model": arch, **rep})
+    dispatches = sum(s.dispatch_count for s in svc.sessions) - start
+    launches = read_launches(kernel_mods, ("majx", "mismatch"), dispatches,
+                             "lm_serve")
+    check(launches["majx"] == 1 and launches["mismatch"] == 3,
+          f"lm_serve: want 1 MAJX (the heal) and 3 mismatch launches (the "
+          f"heal's count, two verifies), got {launches}")
+    del svc
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+        emit({"phase": "lm_serve", "kernels_at_heal_shape":
+              lm_kernels(torch, timer, heal_rows)})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1928,6 +2426,7 @@ def main() -> int:
     serve = timed("serve", phase_serve, torch, kernel_mods, timer)
     tmr = timed("tmr_ckpt", phase_tmr_ckpt, torch, kernel_mods)
     sweep = timed("sweep", phase_sweep, torch, kernel_mods)
+    lm = timed("lm_serve", phase_lm_serve, torch, kernel_mods, timer)
     emit({"phase": "walls", "seconds": walls})
 
     replaces = {
@@ -1949,13 +2448,15 @@ def main() -> int:
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": replaces[name],
             "launches": (path[name] + session[name] + arith[name]
-                         + serve[name] + tmr[name] + sweep[name]),
+                         + serve[name] + tmr[name] + sweep[name]
+                         + lm[name]),
             "launches_by_path": {"path": path[name],
                                  "session": session[name],
                                  "arith": arith[name],
                                  "serve": serve[name],
                                  "tmr_ckpt": tmr[name],
-                                 "sweep": sweep[name]},
+                                 "sweep": sweep[name],
+                                 "lm_serve": lm[name]},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

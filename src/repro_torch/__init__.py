@@ -9,8 +9,11 @@ lowering), ``backends`` (``oracle``, ``sim`` and ``cuda`` executors),
 with its plain PyTorch version), ``analyze`` (race, liveness and
 equivalence certification of compiled programs) and ``session``
 (``DramSession``: typed, validated, compile-cached and certified
-execution), ``serve``, ``ckpt`` and ``sweep`` (declarative, resumable
-characterization campaigns).  It imports neither JAX nor the
+execution), ``serve`` (the PUD service and the LM serving engine),
+``ckpt``, ``sweep`` (declarative, resumable characterization
+campaigns), and the LM stack: ``configs``, ``dist`` (logical-axis
+sharding rules), ``models`` (the dense, audio and vlm transformer
+families) and ``launch`` (``python -m repro_torch.launch.serve``).  It imports neither JAX nor the
 reference package; :mod:`repro_torch.interop` carries the reference's
 artefacts across as numpy arrays and JSON.
 

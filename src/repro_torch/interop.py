@@ -11,7 +11,10 @@ state.  What crosses between them is plain data — JSON and numpy arrays
 * :func:`compiled_program_from` — a traced §8.1 ``CompiledProgram``
   (its Program's JSON, image, output rows and lane count);
 * :func:`state_to_device` / :func:`state_to_numpy` — a ``uint32``
-  (rows, words) image to and from the port's int32 tensors.
+  (rows, words) image to and from the port's int32 tensors;
+* :func:`params_from_jax` / :func:`params_to_numpy` — a model's
+  parameter tree (numpy arrays, bfloat16 ones included) to and from the
+  port's tensors.
 """
 
 from __future__ import annotations
@@ -19,10 +22,12 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.backends.context import ExecutionContext, Timings
 from repro_torch.compile.megakernel import MegaLowering
 from repro_torch.compile.trace import CompiledProgram
+from repro_torch.core import tree as tree_util
 from repro_torch.core.bitplanes import from_u32 as state_to_device  # noqa
 from repro_torch.core.bitplanes import to_u32 as state_to_numpy  # noqa
 from repro_torch.pud.isa import Program
@@ -87,3 +92,41 @@ def compiled_program_from(program_json: str, state, out_rows,
                          f"{state.shape[0]} rows")
     return CompiledProgram(program_from_json(program_json), state,
                            out_rows, int(n_lanes))
+
+
+def _leaf_to_tensor(leaf, device) -> torch.Tensor:
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16 has no torch counterpart numpy knows:
+        # carry the bits.
+        bits = np.ascontiguousarray(arr).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(arr, copy=True)).to(device)
+
+
+def params_from_jax(tree, device="cuda"):
+    """The port's parameter tree (tensors on ``device``) for a reference
+    one whose leaves are numpy arrays (``np.asarray`` of each jax
+    array); bfloat16 leaves are taken by their bits, without
+    ``ml_dtypes``."""
+    leaves, structure = tree_util.flatten(tree)
+    return tree_util.unflatten(
+        structure, [_leaf_to_tensor(x, device) for x in leaves])
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # only where a bfloat16 array is asked for
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_to_numpy(tree):
+    """The inverse of :func:`params_from_jax`: a tree of numpy arrays
+    (bfloat16 leaves as ``ml_dtypes.bfloat16``, as ``np.asarray`` of a
+    jax array gives them)."""
+    leaves, structure = tree_util.flatten(tree)
+    return tree_util.unflatten(structure,
+                               [_leaf_to_numpy(x) for x in leaves])

@@ -19,9 +19,10 @@ substrate efficiently.  This package is that service subsystem:
   :class:`~repro_torch.session.DramSession`\\ s (on the card unless the
   context names another device).
 
-The reference's LM serving engine (``serve/engine.py``, whose integrity
-hooks are thin clients of :class:`PudService`) comes to the port with
-the LM stack.
+:mod:`repro_torch.serve.engine` is the LM serving engine (continuous
+batching over :mod:`repro_torch.models.model`), whose integrity hooks
+``heal_params`` / ``verify_params`` are thin clients of
+:class:`PudService`.
 """
 
 from repro_torch.serve.admission import (AdmissionController,

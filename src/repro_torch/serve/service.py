@@ -32,9 +32,9 @@ Two client styles share one engine:
 ...     res = await svc.submit(HealRequest(replicas=tiles))
 ...     await svc.stop()
 
-The reference's LM serving engine (``serve/engine.py``), whose
-``heal_params`` / ``verify_params`` are thin sync clients of this
-service, comes to the port with the LM stack.
+The LM serving engine (:mod:`repro_torch.serve.engine`) is a thin sync
+client of this service: its ``heal_params`` / ``verify_params`` submit
+one heal or integrity request over the model's packed parameters.
 """
 
 from __future__ import annotations

@@ -144,12 +144,15 @@ class RowAllocator:
         docstring for the handle-invalidation contract.
         """
         rows = (rows,) if isinstance(rows, Row) else tuple(rows)
+        # A set of the free list: the reference tests each row against
+        # the list itself, which is quadratic in a model-sized release.
+        on_free = set(self._free)
         for row in rows:
             if not self.owns(row):
                 raise RowAllocationError(
                     f"{self.name}: cannot free row "
                     f"{getattr(row, 'index', row)!r}: not allocated here")
-            if row.index in self._free or row.index >= self._next:
+            if row.index in on_free or row.index >= self._next:
                 raise RowAllocationError(
                     f"{self.name}: double free of row {row.index} "
                     f"(tag {row.tag!r})")

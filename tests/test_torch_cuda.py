@@ -672,3 +672,92 @@ def test_spice_study_on_the_card_equals_the_cpu(cuda_device):
     key = rng.PRNGKey(0)
     assert cs.spice_study(key, 3001, cuda_device) == \
         cs.spice_study(key, 3001, "cpu")
+
+
+# ------------------------------------------------------------- LM serving
+
+
+def _lm_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _lm_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "musicgen-medium",
+                                  "phi-3-vision-4.2b"])
+def test_lm_prefill_and_decode_on_the_card_equal_the_cpu(cuda_device, arch):
+    """A float32 smoke model's prefill and teacher-forced decode logits on
+    the card within 1e-4 of the largest of the CPU's (TF32 off: both
+    compute exact float32 products in their own summation order)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    params, _ = M.init(0, cfg, device=cuda_device)
+    host = _lm_tree(lambda t: t.cpu(), params)
+    rng = np.random.default_rng(0)
+    tail = (cfg.n_codebooks,) if cfg.family == "audio" else ()
+    toks = rng.integers(0, cfg.vocab_size, (2, 12) + tail)
+    steps = rng.integers(0, cfg.vocab_size, (2, 4) + tail)
+
+    def run(p, device):
+        out = []
+        logits, cache = M.prefill(
+            p, {"tokens": torch.as_tensor(toks, device=device)}, cfg, 32)
+        out.append(logits.cpu())
+        for t in range(steps.shape[1]):
+            tok = torch.as_tensor(steps[:, t:t + 1], device=device)
+            logits, cache = M.decode(p, tok, cache, cfg)
+            out.append(logits.cpu())
+        return out
+
+    with torch.inference_mode():
+        for got, want in zip(run(params, cuda_device), run(host, "cpu")):
+            err = (got - want).abs().max() / want.abs().max()
+            assert float(err) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_engine_generates_and_heals_on_the_card(cuda_device):
+    """``Engine.generate`` on the card gives the CPU engine's tokens for a
+    float32 smoke model; ``heal_params`` through the card's service
+    (one MAJX and one mismatch launch) restores the clean params bit for
+    bit and counts the flipped bits."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import tree as tree_util
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import Engine, Request
+
+    cfg = dataclasses.replace(get_config("chatglm3-6b", smoke=True),
+                              dtype="float32")
+    params, _ = M.init(0, cfg, device=cuda_device)
+    card = Engine(params, cfg, max_seq=32)
+    host = Engine(_lm_tree(lambda t: t.cpu(), params), cfg, max_seq=32,
+                  device="cpu")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, (8,)) for _ in range(3)]
+    got = card.generate([Request(rid=i, prompt=p, max_new_tokens=4)
+                         for i, p in enumerate(prompts)])
+    want = host.generate([Request(rid=i, prompt=p, max_new_tokens=4)
+                          for i, p in enumerate(prompts)])
+    for a, b in zip(got, want):
+        assert [int(t) for t in a.out_tokens] == \
+            [int(t) for t in b.out_tokens]
+    bad = dict(params, ln_f=params["ln_f"].clone())
+    bad["ln_f"].view(torch.int32)[3] ^= 0x00F0
+    before = (majx_ops.launches, mismatch_ops.launches)
+    assert card.heal_params([bad, params, params]) == 4
+    assert (majx_ops.launches, mismatch_ops.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for a, b in zip(tree_util.flatten(card.params)[0],
+                    tree_util.flatten(params)[0]):
+        assert a.device.type == "cuda"
+        assert torch.equal(a.view(-1).view(torch.uint8),
+                           b.reshape(-1).view(torch.uint8))
+    assert card.verify_params(params) == 1.0
