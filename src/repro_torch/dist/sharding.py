@@ -9,23 +9,37 @@ serving flips to the activation-stationary layout.
 
 Key invariants:
 
-* **No mesh, no constraint** — without a mesh every helper degrades to a
-  no-op, so single-device runs never pay a layout cost.  The port places
-  nothing over a device mesh yet, so :func:`constraint` always returns
-  its input and :func:`axis_extent` is 1 unless a mesh is passed in.
+* **No mesh, no constraint** — outside a mesh context every helper
+  degrades to a no-op / replicated sharding, so single-device runs never
+  pay a layout cost.
 * **Indivisible dims replicate** — a logical axis whose mesh extent does
   not divide the tensor dim is dropped (replicated), never erroring.
 * **Each physical axis is used at most once per spec** (SPMD requirement).
 
-A mesh here is anything with ``axis_names`` and a ``shape`` mapping from
-axis name to extent, which is all :func:`_spec_entries` reads.
+:class:`Mesh` is the port's counterpart of ``jax.sharding.Mesh``: a
+numpy grid of ``torch.device``s with named axes, entered with ``with
+mesh:``.  A :class:`Sharding` (``NamedSharding``) pairs a mesh with the
+spec entries :func:`_spec_entries` gives.  Placing a tensor is ``.to``
+its device on a mesh of one device; :meth:`Sharding.shards` cuts a
+tensor into its distinct blocks, each on the first device that holds
+it.  One tensor laid out over several cards is not supported:
+:meth:`Sharding.place` and :func:`constraint` raise there (ROADMAP
+queue 1, multi-card placement).  :func:`_spec_entries` and
+:func:`axis_extent` read only ``axis_names`` and the ``shape`` mapping
+of a mesh, so any object with those two serves them.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import itertools
+import math
 import threading
 from typing import Mapping, Optional, Sequence
+
+import numpy as np
+import torch
 
 #: Logical axis annotation: a tuple of logical names (or None) per dim.
 Axes = Sequence[Optional[str]]
@@ -75,6 +89,53 @@ SERVE_RULES = AxisRules("serve", {
 
 _STATE = threading.local()
 
+#: What a placement over several cards waits for.
+MULTI_CARD_PENDING = ("laying one tensor out over several cards is not "
+                      "ported (ROADMAP queue 1: multi-card placement)")
+
+
+class Mesh:
+    """A grid of devices with named axes (``jax.sharding.Mesh``).
+
+    ``devices`` is anything numpy reshapes into the grid (a nested list
+    or an object array of ``torch.device``s or device strings).  ``with
+    mesh:`` makes it the current mesh of the thread, as in jax.
+    """
+
+    def __init__(self, devices, axis_names: Sequence[str]):
+        grid = np.asarray(devices, dtype=object)
+        flat = np.empty(grid.size, dtype=object)
+        flat[:] = [torch.device(d) for d in grid.reshape(-1)]
+        self.devices = flat.reshape(grid.shape)
+        self.axis_names = tuple(axis_names)
+        if self.devices.ndim != len(self.axis_names):
+            raise ValueError(f"a {self.devices.ndim}-d device grid needs as "
+                             f"many axis names, got {self.axis_names}")
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    @property
+    def empty(self) -> bool:
+        return self.size == 0
+
+    def __enter__(self) -> "Mesh":
+        if not hasattr(_STATE, "meshes"):
+            _STATE.meshes = []
+        _STATE.meshes.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _STATE.meshes.pop()
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return f"Mesh({self.shape}, {self.devices.reshape(-1)[:1]}...)"
+
 
 def _active_rules() -> AxisRules:
     return getattr(_STATE, "rules", DEFAULT_RULES)
@@ -94,9 +155,18 @@ def use_rules(rules: AxisRules):
             _STATE.rules = prev
 
 
+def _current_mesh() -> Optional[Mesh]:
+    """The mesh entered via ``with mesh:``, or None outside any."""
+    meshes = getattr(_STATE, "meshes", None)
+    if not meshes or meshes[-1].empty:
+        return None
+    return meshes[-1]
+
+
 def axis_extent(logical: str, rules: Optional[AxisRules] = None,
                 mesh=None) -> int:
     """Product of mesh extents a logical axis shards over (1 off-mesh)."""
+    mesh = mesh if mesh is not None else _current_mesh()
     if mesh is None:
         return 1
     rules = rules or _active_rules()
@@ -129,7 +199,103 @@ def _spec_entries(axes: Axes, mesh, rules: AxisRules,
     return entries
 
 
-def constraint(x, axes: Axes):
-    """Apply a logical-axes layout constraint: a no-op, since the port
-    runs every tensor on one device (no mesh can be entered yet)."""
-    return x
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """A mesh and one spec entry a dim (``NamedSharding``): ``None``
+    replicates the dim, a mesh axis name (or a tuple of them) splits it
+    over those axes' devices, row-major."""
+
+    mesh: Mesh
+    spec: tuple
+
+    def _block(self, coords: dict[str, int], shape) -> tuple:
+        """The slices of the block the device at ``coords`` holds."""
+        index = []
+        for dim, entry in zip(shape, self.spec + (None,) * len(shape)):
+            if entry is None:
+                index.append(slice(None))
+                continue
+            names = entry if isinstance(entry, tuple) else (entry,)
+            extent = math.prod(self.mesh.shape[a] for a in names)
+            pos = 0
+            for a in names:
+                pos = pos * self.mesh.shape[a] + coords[a]
+            size = dim // extent
+            index.append(slice(pos * size, (pos + 1) * size))
+        return tuple(index)
+
+    def shards(self, x: torch.Tensor) -> list[tuple[tuple, torch.Tensor]]:
+        """Each distinct block of ``x`` as ``(slices, tensor)``, the
+        tensor on the first device (in the grid's row-major order) that
+        holds the block; replicas of a block are not copied again."""
+        out, seen = [], set()
+        for coords in itertools.product(*map(range, self.mesh.devices.shape)):
+            index = self._block(dict(zip(self.mesh.axis_names, coords)),
+                                x.shape)
+            key = tuple((s.start, s.stop) for s in index)
+            if key not in seen:
+                seen.add(key)
+                out.append((index, x[index].to(self.mesh.devices[coords])))
+        return out
+
+    def place(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` laid out by this sharding: on a mesh of one device, on
+        that device; over several cards, not supported (raises)."""
+        if self.mesh.size == 1:
+            return x.to(self.mesh.devices.reshape(-1)[0])
+        raise NotImplementedError(f"{self.spec} over {self.mesh.shape}: "
+                                  f"{MULTI_CARD_PENDING}")
+
+
+def sharding_for(shape: Sequence[int], axes: Axes, mesh: Mesh,
+                 rules: Optional[AxisRules] = None) -> Sharding:
+    """The Sharding for a concrete shape (indivisible dims replicate)."""
+    rules = rules or _active_rules()
+    return Sharding(mesh, tuple(_spec_entries(tuple(axes), mesh, rules,
+                                              tuple(shape))))
+
+
+def _is_axes_leaf(x) -> bool:
+    return isinstance(x, tuple) and all(
+        a is None or isinstance(a, str) for a in x)
+
+
+def tree_shardings(axes_tree, mesh: Mesh,
+                   rules: Optional[AxisRules] = None):
+    """Map a tree of logical-axes tuples to Shardings.
+
+    Leaves are tuples of logical names / None (the empty tuple is a
+    scalar leaf -> fully replicated); containers are dicts, lists and
+    (named)tuples of them.  Shape-unaware: divisibility is the
+    annotator's contract here (shape-aware callers use
+    :func:`sharding_for`).
+    """
+    rules = rules or _active_rules()
+
+    def walk(node):
+        if _is_axes_leaf(node):
+            return Sharding(mesh, tuple(_spec_entries(node, mesh, rules)))
+        if isinstance(node, dict):
+            return type(node)((k, walk(v)) for k, v in node.items())
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*map(walk, node))
+        return type(node)(map(walk, node))
+
+    return walk(axes_tree)
+
+
+def constraint(x: torch.Tensor, axes: Axes) -> torch.Tensor:
+    """Apply a logical-axes layout constraint (no-op outside a mesh).
+
+    Inside a mesh of one device the tensor is placed on it; over several
+    cards a replicated layout leaves it as it is and any split raises
+    (:data:`MULTI_CARD_PENDING`)."""
+    mesh = _current_mesh()
+    if mesh is None:
+        return x
+    if mesh.size == 1:
+        return x.to(mesh.devices.reshape(-1)[0])
+    entries = _spec_entries(tuple(axes), mesh, _active_rules(), x.shape)
+    if all(e is None for e in entries):
+        return x
+    return Sharding(mesh, tuple(entries)).place(x)

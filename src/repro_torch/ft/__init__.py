@@ -1,3 +1,2 @@
-"""Fault tolerance: straggler detection (:mod:`.straggler`).  The
-reference's elastic re-meshing and failure injection come with the
-sweep."""
+"""Fault tolerance: straggler detection (:mod:`.straggler`), failure
+injection (:mod:`.failures`) and elastic re-meshing (:mod:`.elastic`)."""

@@ -7,7 +7,9 @@ imported: a library is built the first time a wrapper launches its
 kernel (or when :func:`build_all` is called), into ``build/repro_torch/``
 at the root of the checkout.  The file name carries a hash of the
 sources and flags, so an edited source is rebuilt and a stale library is
-never loaded.
+never loaded.  Builds and loads run under one module lock, so threads
+that launch a kernel at once on a cold build directory start one
+``nvcc`` a source, and every build writes a temporary file of its own.
 
 Every wrapper in :mod:`repro_torch.kernels` goes through this module:
 
@@ -27,13 +29,14 @@ Every wrapper in :mod:`repro_torch.kernels` goes through this module:
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import pathlib
 import shutil
 import subprocess
+import threading
 import time
+import uuid
 
 import torch
 
@@ -46,6 +49,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = ("majx", "fanout", "megakernel", "mismatch", "bitserial")
 #: Largest 1-D grid a launch asks for; a grid-stride loop covers the rest.
 MAX_BLOCKS = 2**31 - 1
+
+#: Serializes builds, loads and bindings (re-entrant: a first launch
+#: builds from inside :func:`_library`).
+_LOCK = threading.RLock()
 
 VOID_P = ctypes.c_void_p
 I32 = ctypes.c_int
@@ -74,7 +81,7 @@ def library_path(name: str) -> pathlib.Path:
 def _start_build(name: str) -> tuple[subprocess.Popen, pathlib.Path]:
     out = library_path(name)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".so.tmp{os.getpid()}")
+    tmp = out.with_suffix(f".so.tmp{os.getpid()}-{uuid.uuid4().hex[:8]}")
     log = open(out.with_suffix(".log"), "w")
     try:
         proc = subprocess.Popen(
@@ -93,19 +100,20 @@ def build_all(names=SOURCES) -> dict[str, float]:
     the current sources already existed).  Raises with the compiler's
     log when a build fails.
     """
-    t0 = time.perf_counter()
-    started = {n: _start_build(n) for n in names
-               if not library_path(n).exists()}
-    seconds = {n: 0.0 for n in names}
-    failed = []
-    for n, (proc, tmp) in started.items():
-        rc = proc.wait()
-        seconds[n] = time.perf_counter() - t0
-        if rc == 0:
-            os.replace(tmp, library_path(n))
-        else:
-            tmp.unlink(missing_ok=True)
-            failed.append(n)
+    with _LOCK:
+        t0 = time.perf_counter()
+        started = {n: _start_build(n) for n in names
+                   if not library_path(n).exists()}
+        seconds = {n: 0.0 for n in names}
+        failed = []
+        for n, (proc, tmp) in started.items():
+            rc = proc.wait()
+            seconds[n] = time.perf_counter() - t0
+            if rc == 0:
+                os.replace(tmp, library_path(n))
+            else:
+                tmp.unlink(missing_ok=True)
+                failed.append(n)
     if failed:
         logs = "\n".join(library_path(n).with_suffix(".log").read_text()
                          for n in failed)
@@ -113,12 +121,19 @@ def build_all(names=SOURCES) -> dict[str, float]:
     return seconds
 
 
-@functools.cache
+#: Loaded libraries by source name.
+_LIBRARIES: dict[str, ctypes.CDLL] = {}
+
+
 def _library(name: str) -> ctypes.CDLL:
-    path = library_path(name)
-    if not path.exists():
-        build_all((name,))
-    return ctypes.CDLL(str(path))
+    with _LOCK:
+        lib = _LIBRARIES.get(name)
+        if lib is None:
+            path = library_path(name)
+            if not path.exists():
+                build_all((name,))
+            lib = _LIBRARIES[name] = ctypes.CDLL(str(path))
+        return lib
 
 
 #: Bound entry points by (library, function): ``argtypes`` are set once.
@@ -133,10 +148,13 @@ def kernel(name: str, fn: str, argtypes: list) -> ctypes._CFuncPtr:
     """
     f = _ENTRIES.get((name, fn))
     if f is None:
-        f = getattr(_library(name), fn)
-        f.argtypes = argtypes
-        f.restype = ctypes.c_int
-        _ENTRIES[(name, fn)] = f
+        with _LOCK:
+            f = _ENTRIES.get((name, fn))
+            if f is None:
+                f = getattr(_library(name), fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+                _ENTRIES[(name, fn)] = f
     return f
 
 

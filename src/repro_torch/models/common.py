@@ -9,7 +9,9 @@ their logical axes.
 
 Initializers draw from an explicit ``torch.Generator`` on the device the
 weights live on; they need not match the reference's bits (weights
-cross over through :func:`repro_torch.interop.params_from_jax`).
+cross over through :func:`repro_torch.interop.params_from_jax`).  On the
+``meta`` device nothing is drawn or allocated: the tensors carry only
+their shapes and dtypes (:func:`repro_torch.models.model.init_abstract`).
 """
 
 from __future__ import annotations
@@ -23,18 +25,29 @@ import torch.nn.functional as F
 Axes = tuple
 
 
+class _Shapes:
+    """Stands in for a generator on the ``meta`` device, where no value
+    is drawn."""
+
+    device = torch.device("meta")
+
+
 def generator(key: Union[int, torch.Generator],
               device="cuda") -> torch.Generator:
     """``key`` itself when it is a generator, else one seeded with it on
-    ``device``."""
+    ``device`` (on ``meta``, a stand-in that draws nothing)."""
     if isinstance(key, torch.Generator):
         return key
+    if torch.device(device).type == "meta":
+        return _Shapes()
     gen = torch.Generator(device=device)
     gen.manual_seed(int(key))
     return gen
 
 
 def _normal(gen: torch.Generator, shape) -> torch.Tensor:
+    if isinstance(gen, _Shapes):
+        return torch.empty(shape, dtype=torch.float32, device="meta")
     return torch.randn(shape, generator=gen, device=gen.device,
                        dtype=torch.float32)
 
@@ -63,6 +76,33 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     var = x.square().mean(dim=-1, keepdim=True)
     out = x * torch.rsqrt(var + eps)
     return (out * (1.0 + weight.float())).to(dtype)
+
+
+def _const(v: float, x: torch.Tensor) -> torch.Tensor:
+    """A Python constant in ``x``'s dtype, as JAX rounds a weak-typed one."""
+    return torch.tensor(v, dtype=x.dtype, device=x.device)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as XLA computes it: ``x * (1 / (1 + exp(-x)))``,
+    each step rounded to ``x``'s dtype.
+
+    ``F.silu`` rounds once.  In bfloat16 that one-ulp difference, fed
+    into a recurrence (Mamba2's conv and gate, the xLSTM gates), moves a
+    model's logits away from the reference's by more than the 3e-2 the
+    bfloat16 tests allow; the MLP and MoE paths keep ``F.silu`` (one
+    launch, and there the difference stays small)."""
+    one = _const(1.0, x)
+    return x * (one / (one + torch.exp(-x)))
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(approximate=True)`` step by step in ``x``'s dtype
+    (see :func:`silu` for why and where)."""
+    inner = x + _const(0.044715, x) * (x * x * x)
+    cdf = _const(0.5, x) * (_const(1.0, x) + torch.tanh(
+        _const(math.sqrt(2 / math.pi), x) * inner))
+    return x * cdf
 
 
 def act_fn(name: str) -> Callable:

@@ -1,5 +1,4 @@
-"""Model assembly: embed -> stacked blocks -> head, for the transformer
-families ``dense``, ``audio`` and ``vlm``.
+"""Model assembly: embed -> stacked blocks -> head, for all six families.
 
 Public API (functional, as the reference's):
 
@@ -8,12 +7,13 @@ Public API (functional, as the reference's):
   prefill(params, batch, cfg, max_seq) -> (logits, cache)
   decode(params, tokens, cache, cfg)   -> (logits, cache)   (one step)
   fresh_cache(cfg, batch, max_seq)     -> cache
+  init_abstract(cfg)                   -> (params on ``meta``, axes)
 
-Blocks keep the reference's stacked ``(L, ...)`` leaves; where the
-reference runs ``lax.scan`` over them, a Python loop runs over layer
-views.  The ``moe``, ``hybrid`` and ``ssm`` families are not ported yet
-(ROADMAP queue 1): their configs load, and these functions raise
-``NotImplementedError`` for them.
+Transformer, MoE and Mamba blocks keep the reference's stacked
+``(L, ...)`` leaves; where the reference runs ``lax.scan`` over them, a
+Python loop runs over layer views.  The ``ssm`` family's blocks are a
+list of unlike dicts (mLSTM or sLSTM), and the ``hybrid`` and ``ssm``
+caches are lists of NamedTuples, as in the reference.
 """
 
 from __future__ import annotations
@@ -25,20 +25,18 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.sharding import constraint
 from repro_torch.models import attention as attn
-from repro_torch.models import mlp
+from repro_torch.models import mamba2, mlp, moe, xlstm
 from repro_torch.models.common import (embed_init, generator, layer,
                                        rms_norm, stack_params, zeros_f32)
 
 #: The families this module runs.
-FAMILIES = ("dense", "audio", "vlm")
+FAMILIES = ("dense", "moe", "hybrid", "ssm", "audio", "vlm")
+#: The families built of transformer blocks.
+_TRANSFORMER = ("dense", "moe", "audio", "vlm")
 
 
-def _require_family(cfg: ModelConfig) -> None:
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP queue 1: the moe, hybrid and ssm families); "
-            f"ported: {', '.join(FAMILIES)}")
+def _zero(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 # ---------------------------------------------------------------------------
@@ -47,13 +45,26 @@ def _require_family(cfg: ModelConfig) -> None:
 
 
 def _init_tblock(gen: torch.Generator, cfg: ModelConfig):
-    """One transformer block (dense MLP)."""
+    """One transformer block (dense or MoE)."""
     a_p, a_ax = attn.init_attention(gen, cfg)
-    f_p, f_ax = mlp.init_mlp(gen, cfg)
+    if cfg.is_moe:
+        f_p, f_ax = moe.init_moe(gen, cfg)
+        fkey = "moe"
+    else:
+        f_p, f_ax = mlp.init_mlp(gen, cfg)
+        fkey = "mlp"
     params = {"ln1": zeros_f32(gen, cfg.d_model), "attn": a_p,
-              "ln2": zeros_f32(gen, cfg.d_model), "mlp": f_p}
-    axes = {"ln1": (None,), "attn": a_ax, "ln2": (None,), "mlp": f_ax}
+              "ln2": zeros_f32(gen, cfg.d_model), fkey: f_p}
+    axes = {"ln1": (None,), "attn": a_ax, "ln2": (None,), fkey: f_ax}
     return params, axes
+
+
+def _ffn(p, x, cfg: ModelConfig, **moe_kw):
+    """The block's feed-forward half: (output, MoE aux loss or None)."""
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if cfg.is_moe:
+        return moe.moe_forward(p["moe"], h, cfg, **moe_kw)
+    return mlp.mlp_forward(p["mlp"], h, cfg), None
 
 
 def _tblock_forward(p, x, positions, cfg: ModelConfig):
@@ -62,15 +73,17 @@ def _tblock_forward(p, x, positions, cfg: ModelConfig):
     x = x + h
     sp = "sp" if cfg.seq_shard else None
     x = constraint(x, ("batch", sp, None))
-    h = mlp.mlp_forward(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
-    return constraint(x + h, ("batch", sp, None))
+    h, aux = _ffn(p, x, cfg)
+    # sequence-parallel carry: the saved residual is seq-sharded
+    return constraint(x + h, ("batch", sp, None)), aux
 
 
 def _tblock_decode(p, x, cache, cfg: ModelConfig):
     h, new_cache = attn.attention_decode(
         p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps), cache, cfg)
     x = x + h
-    h = mlp.mlp_forward(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    h, _ = _ffn(p, x, cfg, **({"capacity": max(x.shape[0], 8)}
+                              if cfg.is_moe else {}))
     return x + h, new_cache
 
 
@@ -79,7 +92,7 @@ def _tblock_prefill(p, x, positions, cfg: ModelConfig, max_seq: int):
         p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps), positions, cfg,
         max_seq)
     x = x + h
-    h = mlp.mlp_forward(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    h, _ = _ffn(p, x, cfg)
     return x + h, cache
 
 
@@ -144,20 +157,47 @@ def init(key: Union[int, torch.Generator], cfg: ModelConfig, *,
          device="cuda"):
     """``(params, axes)`` drawn from ``key`` (a seed or a generator) on
     ``device``; ``axes`` equals the reference's tree."""
-    _require_family(cfg)
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family}")
     gen = generator(key, device)
     emb_p, emb_ax = _init_embed(gen, cfg)
     head_p, head_ax = _init_head(gen, cfg)
     params: dict[str, Any] = {"embed": emb_p, "head": head_p,
                               "ln_f": zeros_f32(gen, cfg.d_model)}
     axes: dict[str, Any] = {"embed": emb_ax, "head": head_ax, "ln_f": (None,)}
-    if cfg.n_layers == 0:  # the reference's roofline composition point
+    if cfg.family == "ssm":
+        blocks, baxes = [], []
+        for i in range(cfg.n_layers):
+            if i in cfg.slstm_layers:
+                p, ax = xlstm.init_slstm(gen, cfg)
+            else:
+                p, ax = xlstm.init_mlstm(gen, cfg)
+            blocks.append({"ln": zeros_f32(gen, cfg.d_model), "mix": p})
+            baxes.append({"ln": (None,), "mix": ax})
+        params["blocks"], axes["blocks"] = blocks, baxes
+    elif cfg.n_layers == 0:  # the reference's roofline composition point
         params["blocks"], axes["blocks"] = {}, {}
+    elif cfg.family == "hybrid":
+        layers = [mamba2.init_mamba2(gen, cfg) for _ in range(cfg.n_layers)]
+        params["blocks"], axes["blocks"] = stack_params(
+            [p for p, _ in layers], layers[0][1])
+        params["mamba_ln"] = torch.zeros((cfg.n_layers, cfg.d_model),
+                                         dtype=torch.float32,
+                                         device=gen.device)
+        axes["mamba_ln"] = (None, None)
+        # the Zamba *shared* attention block (one set, reused)
+        params["shared_attn"], axes["shared_attn"] = _init_tblock(gen, cfg)
     else:
         layers = [_init_tblock(gen, cfg) for _ in range(cfg.n_layers)]
         params["blocks"], axes["blocks"] = stack_params(
             [p for p, _ in layers], layers[0][1])
     return params, axes
+
+
+def init_abstract(cfg: ModelConfig):
+    """``(params, axes)`` with no allocation: every leaf a ``meta``
+    tensor of the real shape and dtype."""
+    return init(0, cfg, device="meta")
 
 
 # ---------------------------------------------------------------------------
@@ -177,18 +217,81 @@ def _inputs(params, batch, cfg: ModelConfig):
     return x, positions
 
 
+def _ssm_mix(bp, x, i: int, cfg: ModelConfig):
+    """Layer ``i`` of an ssm stack over a sequence: (output, state)."""
+    h = rms_norm(x, bp["ln"], cfg.norm_eps)
+    if i in cfg.slstm_layers:
+        return xlstm.slstm_forward(bp["mix"], h, cfg)
+    return xlstm.mlstm_forward(bp["mix"], h, cfg)
+
+
 def forward(params, batch, cfg: ModelConfig):
-    """Logits over the whole sequence, and the MoE aux loss (0 here)."""
-    _require_family(cfg)
+    """Logits over the whole sequence, and the summed MoE aux loss."""
     x, positions = _inputs(params, batch, cfg)
     x = constraint(x, ("batch", "sp", None))
-    for i in range(cfg.n_layers):
-        x = _tblock_forward(layer(params["blocks"], i), x, positions, cfg)
+    aux_total = _zero(x)
+    if cfg.family in _TRANSFORMER:
+        for i in range(cfg.n_layers):
+            x, a = _tblock_forward(layer(params["blocks"], i), x, positions,
+                                   cfg)
+            if a is not None:
+                aux_total = aux_total + a
+    elif cfg.family == "hybrid":
+        x, aux_total = _zamba_forward(params, x, positions, cfg)
+    else:
+        for i, bp in enumerate(params["blocks"]):
+            y, _ = _ssm_mix(bp, x, i, cfg)
+            x = constraint(x + y, ("batch", "sp", None))
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = _head(params["head"], params["embed"], x, cfg)
     if cfg.family == "vlm" and "patches" in batch:
         logits = logits[:, batch["patches"].shape[1]:]
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux_total
+
+
+def _zamba_groups(cfg: ModelConfig):
+    per = cfg.attn_every
+    n_full = cfg.n_layers // per
+    rem = cfg.n_layers - n_full * per
+    return n_full, per, rem
+
+
+def _group_layers(cfg: ModelConfig):
+    """The Mamba layer indices of each group: ``n_full`` groups of
+    ``per`` (each followed by the shared block), then the remainder."""
+    n_full, per, rem = _zamba_groups(cfg)
+    groups = [range(g * per, (g + 1) * per) for g in range(n_full)]
+    if rem:
+        groups.append(range(cfg.n_layers - rem, cfg.n_layers))
+    return groups, n_full
+
+
+def _mamba_layer(params, x, i: int, cfg: ModelConfig, state=None,
+                 step: bool = False):
+    h = rms_norm(x, params["mamba_ln"][i], cfg.norm_eps)
+    lp = layer(params["blocks"], i)
+    if step:
+        return mamba2.mamba2_decode(lp, h, cfg, state)
+    return mamba2.mamba2_forward(lp, h, cfg)
+
+
+def _stack_states(states: list):
+    """Per-layer NamedTuple states -> one of stacked (n, ...) leaves."""
+    return type(states[0])(*(torch.stack(leaves) for leaves in zip(*states)))
+
+
+def _zamba_forward(params, x, positions, cfg: ModelConfig):
+    groups, n_full = _group_layers(cfg)
+    aux = _zero(x)
+    for g, idx in enumerate(groups):
+        for i in idx:
+            y, _ = _mamba_layer(params, x, i, cfg)
+            x = constraint(x + y, ("batch", "sp", None))
+        if g < n_full:
+            x, a = _tblock_forward(params["shared_attn"], x, positions, cfg)
+            if a is not None:
+                aux = aux + a
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -197,55 +300,138 @@ def forward(params, batch, cfg: ModelConfig):
 
 
 class ServeCache(NamedTuple):
-    layers: Any         # stacked per-layer cache (a KVCache of (L, ...))
-    extra: Any          # family-specific (None for the ported families)
-
-
-def _stack_caches(caches: list) -> attn.KVCache:
-    return attn.KVCache(*(torch.stack(leaves) for leaves in zip(*caches)))
+    layers: Any         # stacked per-layer cache, or a list of states
+    extra: Any          # family-specific (the shared attention's caches)
 
 
 def prefill(params, batch, cfg: ModelConfig, max_seq: int):
     """Last-position logits and the cache after the whole prompt."""
-    _require_family(cfg)
     x, positions = _inputs(params, batch, cfg)
-    caches = []
-    for i in range(cfg.n_layers):
-        x, cache = _tblock_prefill(layer(params["blocks"], i), x, positions,
-                                   cfg, max_seq)
-        caches.append(cache)
-    sc = ServeCache(_stack_caches(caches) if caches else None, None)
+    if cfg.family in _TRANSFORMER:
+        caches = []
+        for i in range(cfg.n_layers):
+            x, cache = _tblock_prefill(layer(params["blocks"], i), x,
+                                       positions, cfg, max_seq)
+            caches.append(cache)
+        sc = ServeCache(_stack_states(caches) if caches else None, None)
+    elif cfg.family == "hybrid":
+        x, sc = _zamba_prefill(params, x, positions, cfg, max_seq)
+    else:
+        states = []
+        for i, bp in enumerate(params["blocks"]):
+            y, st = _ssm_mix(bp, x, i, cfg)
+            x = x + y
+            states.append(st)
+        sc = ServeCache(states, None)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = _head(params["head"], params["embed"], x[:, -1:], cfg)
     return logits, sc
+
+
+def _zamba_prefill(params, x, positions, cfg: ModelConfig, max_seq: int):
+    groups, n_full = _group_layers(cfg)
+    m_states, attn_caches = [], []
+    for g, idx in enumerate(groups):
+        sts = []
+        for i in idx:
+            y, st = _mamba_layer(params, x, i, cfg)
+            x = x + y
+            sts.append(st)
+        m_states.append(_stack_states(sts))
+        if g < n_full:
+            x, cache = _tblock_prefill(params["shared_attn"], x, positions,
+                                       cfg, max_seq)
+            attn_caches.append(cache)
+    return x, ServeCache(m_states, attn_caches)
 
 
 def decode(params, tokens: torch.Tensor, cache: ServeCache,
            cfg: ModelConfig):
     """One decode step.  tokens: (B, 1) (audio: (B, 1, CB)).  ``cache``
     itself is left as it was."""
-    _require_family(cfg)
     x = _embed(params["embed"], tokens, cfg)
-    new_caches = []
-    for i in range(cfg.n_layers):
-        x, c = _tblock_decode(layer(params["blocks"], i), x,
-                              attn.KVCache(*(t[i] for t in cache.layers)),
-                              cfg)
-        new_caches.append(c)
-    layers = _stack_caches(new_caches) if new_caches else cache.layers
+    if cfg.family in _TRANSFORMER:
+        new_caches = []
+        for i in range(cfg.n_layers):
+            x, c = _tblock_decode(layer(params["blocks"], i), x,
+                                  attn.KVCache(*(t[i] for t in cache.layers)),
+                                  cfg)
+            new_caches.append(c)
+        layers = _stack_states(new_caches) if new_caches else cache.layers
+        new_sc = ServeCache(layers, None)
+    elif cfg.family == "hybrid":
+        x, new_sc = _zamba_decode(params, x, cache, cfg)
+    else:
+        states = []
+        for i, bp in enumerate(params["blocks"]):
+            h = rms_norm(x, bp["ln"], cfg.norm_eps)
+            step = (xlstm.slstm_decode if i in cfg.slstm_layers
+                    else xlstm.mlstm_decode)
+            y, st = step(bp["mix"], h, cfg, cache.layers[i])
+            x = x + y
+            states.append(st)
+        new_sc = ServeCache(states, None)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = _head(params["head"], params["embed"], x, cfg)
-    return logits, ServeCache(layers, None)
+    return logits, new_sc
+
+
+def _zamba_decode(params, x, cache: ServeCache, cfg: ModelConfig):
+    groups, n_full = _group_layers(cfg)
+    new_m, new_a = [], []
+    for g, idx in enumerate(groups):
+        stacked = cache.layers[g]
+        sts = []
+        for j, i in enumerate(idx):
+            y, st = _mamba_layer(params, x, i, cfg,
+                                 state=type(stacked)(*(t[j] for t in stacked)),
+                                 step=True)
+            x = x + y
+            sts.append(st)
+        new_m.append(_stack_states(sts))
+        if g < n_full:
+            x, ac = _tblock_decode(params["shared_attn"], x, cache.extra[g],
+                                   cfg)
+            new_a.append(ac)
+    return x, ServeCache(new_m, new_a)
+
+
+# ---------------------------------------------------------------------------
+# cache constructors (decode-from-scratch path)
+# ---------------------------------------------------------------------------
+
+
+def _broadcast(state, n: int):
+    """A NamedTuple state repeated ``n`` times along a new leading axis
+    (a view, as the reference's ``broadcast_to``)."""
+    return type(state)(*(t[None].expand((n,) + tuple(t.shape))
+                         for t in state))
 
 
 def fresh_cache(cfg: ModelConfig, batch: int, max_seq: int,
                 device="cuda") -> ServeCache:
     """A cache as it would exist after prefilling ``max_seq`` tokens."""
-    _require_family(cfg)
-    one = attn.init_cache(cfg, batch, max_seq, device=device)
-    layers = attn.KVCache(
-        k=one.k[None].expand((cfg.n_layers,) + one.k.shape),
-        v=one.v[None].expand((cfg.n_layers,) + one.v.shape),
-        pos=torch.full((cfg.n_layers, batch), max_seq, dtype=torch.int32,
-                       device=device))
-    return ServeCache(layers, None)
+    def attn_cache():
+        ac = attn.init_cache(cfg, batch, max_seq, device=device)
+        return ac._replace(pos=torch.full((batch,), max_seq,
+                                          dtype=torch.int32, device=device))
+
+    if cfg.family in _TRANSFORMER:
+        layers = _broadcast(attn.init_cache(cfg, batch, max_seq,
+                                            device=device), cfg.n_layers)
+        layers = layers._replace(pos=torch.full(
+            (cfg.n_layers, batch), max_seq, dtype=torch.int32,
+            device=device))
+        return ServeCache(layers, None)
+    if cfg.family == "hybrid":
+        groups, n_full = _group_layers(cfg)
+        m_states = [_broadcast(mamba2.init_mamba_state(cfg, batch, device),
+                               len(idx)) for idx in groups]
+        return ServeCache(m_states, [attn_cache() for _ in range(n_full)])
+    if cfg.family == "ssm":
+        return ServeCache(
+            [xlstm.init_slstm_state(cfg, batch, device)
+             if i in cfg.slstm_layers
+             else xlstm.init_mlstm_state(cfg, batch, device)
+             for i in range(cfg.n_layers)], None)
+    raise ValueError(cfg.family)

@@ -73,8 +73,9 @@ def _as_tensor(leaf) -> torch.Tensor:
 class Engine:
     """Single-slot-group engine (batch = the requests prefilled together).
 
-    ``params`` is a tree (nested dicts) of tensors on ``device`` for
-    serving; the integrity hooks take any tree of tensors or arrays.
+    ``params`` is a tree (nested dicts and lists) of tensors on
+    ``device`` for serving; the integrity hooks take any tree of tensors
+    or arrays.
     Without ``pud_ctx``/``pud_service`` the engine owns a one-session
     service on ``pud_backend`` with an ideal context on ``device``.
     """

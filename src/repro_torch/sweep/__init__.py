@@ -17,15 +17,15 @@ otherwise:
 Pipeline: :class:`~repro_torch.sweep.spec.SweepSpec` (the grid,
 content-hashed) -> :mod:`~repro_torch.sweep.planner` (backend-native
 batches / chunks)
--> :mod:`~repro_torch.sweep.runner` (execute; shard across worker
-processes) -> :mod:`~repro_torch.sweep.store` (atomic per-chunk files on a
+-> :mod:`~repro_torch.sweep.runner` (execute; shard across workers and the
+device mesh, or fault-tolerantly with :func:`run_sweep_ft`'s elastic
+worker pool) -> :mod:`~repro_torch.sweep.store` (atomic per-chunk files on a
 pluggable backend; restart skips completed chunks) ->
 :mod:`~repro_torch.sweep.aggregate` (headline tables).
 :mod:`~repro_torch.sweep.adaptive` replaces the dense grid with a boundary
 search over the same points/store when only the failure cliff matters.
 ``python -m repro_torch.sweep.run --smoke`` exercises the whole pipeline in
-seconds.  The reference's fault-tolerant runner (``run_sweep_ft``) and
-its device-mesh placement are not ported yet.
+seconds.
 """
 
 from repro_torch.sweep import aggregate, presets  # noqa: F401
@@ -34,7 +34,7 @@ from repro_torch.sweep.adaptive import (  # noqa: F401
 from repro_torch.sweep.planner import (  # noqa: F401
     Chunk, chunks_by_point, plan, shard)
 from repro_torch.sweep.runner import (  # noqa: F401
-    SweepResult, records_for, run_sweep)
+    FtSweepResult, SweepResult, records_for, run_sweep, run_sweep_ft)
 from repro_torch.sweep.spec import (  # noqa: F401
     ANALYTIC, SEARCH_AXES, GridPoint, SweepSpec, load_spec)
 from repro_torch.sweep.store import (  # noqa: F401
@@ -43,9 +43,9 @@ from repro_torch.sweep.store import (  # noqa: F401
 
 __all__ = [
     "ANALYTIC", "AdaptiveResult", "AdaptiveSpec", "Chunk", "Crossing",
-    "GridPoint", "LocalDirBackend", "MemoryBackend",
+    "FtSweepResult", "GridPoint", "LocalDirBackend", "MemoryBackend",
     "RecordStore", "RecordStoreBackend", "SEARCH_AXES", "SweepResult",
     "SweepSpec", "aggregate", "chunks_by_point", "default_root", "discover",
     "load_spec", "plan", "presets", "records_for", "run_adaptive",
-    "run_sweep", "shard",
+    "run_sweep", "run_sweep_ft", "shard",
 ]

@@ -42,7 +42,7 @@ import dataclasses
 from typing import Optional
 
 from repro_torch.sweep import planner
-from repro_torch.sweep.runner import FT_PENDING, _Executor
+from repro_torch.sweep.runner import _Executor
 from repro_torch.sweep.spec import SEARCH_AXES, SweepSpec
 from repro_torch.sweep.store import RecordStore, default_root
 
@@ -166,13 +166,13 @@ class _Budget(Exception):
 class _Prober:
     """Executes/loads grid points on demand through the shared store."""
 
-    def __init__(self, aspec: AdaptiveSpec, store: RecordStore,
+    def __init__(self, aspec: AdaptiveSpec, store: RecordStore, mesh,
                  max_chunks: Optional[int], device: str):
         self.metric = aspec.metric
         self.store = store
         self.chunks = planner.plan(aspec.base)
         self.by_point = planner.chunks_by_point(self.chunks)
-        self.executor = _Executor(aspec.base, device=device)
+        self.executor = _Executor(aspec.base, mesh=mesh, device=device)
         self.max_chunks = max_chunks
         self.executed = 0
         self.probed: set[int] = set()
@@ -276,12 +276,10 @@ def run_adaptive(aspec: AdaptiveSpec, root: Optional[str] = None, *,
     returns ``complete=False``; re-running resumes deterministically
     with zero recomputation.  ``device`` is where the probes execute.
     """
-    if mesh is not None:
-        raise NotImplementedError(f"sweep over a device mesh {FT_PENDING}")
     spec = aspec.base
     if store is None:
         store = RecordStore(default_root(root), spec)
-    prober = _Prober(aspec, store, max_chunks, device)
+    prober = _Prober(aspec, store, mesh, max_chunks, device)
     crossings: list[Crossing] = []
     complete = True
     try:

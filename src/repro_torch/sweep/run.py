@@ -19,6 +19,10 @@
     python -m repro_torch.sweep.run --adaptive      # the adaptive smoke
     python -m repro_torch.sweep.run --adaptive --figure fig6
 
+    # fault-tolerant multi-worker run (elastic membership, straggler
+    # re-dispatch) inside one process:
+    python -m repro_torch.sweep.run --smoke --workers 4
+
 Record stores land under ``--root`` (default: ``$REPRO_SWEEP_ROOT`` if
 set, else the repo-relative ``results/sweeps``), one directory per spec
 hash.
@@ -26,9 +30,6 @@ Re-running with an unchanged spec executes only missing chunks;
 ``--expect-cached`` turns "nothing left to execute" into an exit-code
 assertion, which is how CI verifies resume semantics for both grid and
 adaptive campaigns.
-
-The reference's fault-tolerant multi-worker run (``--workers N``) is not
-ported yet: ``--workers`` above 1 exits 2 and says what it waits for.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ from typing import Optional, Sequence
 
 from repro_torch.sweep import aggregate, presets
 from repro_torch.sweep.adaptive import AdaptiveSpec, run_adaptive
-from repro_torch.sweep.runner import FT_PENDING, run_sweep
+from repro_torch.sweep.runner import run_sweep, run_sweep_ft
 from repro_torch.sweep.spec import SweepSpec, load_spec
 
 
@@ -73,8 +74,9 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--shard-index", type=int, default=0,
                    help="this worker's index in [0, --shards)")
     p.add_argument("--workers", type=int, default=1,
-                   help="in-process fault-tolerant worker threads (not "
-                        "ported yet: above 1 exits 2)")
+                   help="in-process fault-tolerant worker threads "
+                        "(elastic membership + straggler re-dispatch; "
+                        "dense mode only)")
     p.add_argument("--max-chunks", type=int, default=None,
                    help="stop after N chunks (partial run; resumable)")
     p.add_argument("--expect-cached", action="store_true",
@@ -125,10 +127,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.adaptive and (args.shards != 1 or args.workers != 1):
         sys.exit("--adaptive is a sequential search; it cannot be combined "
                  "with --shards/--workers")
-    if args.workers > 1:
-        print(f"--workers {args.workers}: the fault-tolerant multi-worker "
-              f"run {FT_PENDING}", file=sys.stderr)
-        return 2
 
     spec = _resolve_spec(args)
 
@@ -149,10 +147,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             return 1
         return 0
 
-    result = run_sweep(
-        spec, args.root, num_shards=args.shards,
-        shard_index=args.shard_index, max_chunks=args.max_chunks,
-        progress=not args.quiet, device=args.device)
+    if args.workers > 1:
+        result = run_sweep_ft(spec, args.root, n_workers=args.workers,
+                              progress=not args.quiet, device=args.device)
+    else:
+        result = run_sweep(
+            spec, args.root, num_shards=args.shards,
+            shard_index=args.shard_index, max_chunks=args.max_chunks,
+            progress=not args.quiet, device=args.device)
     print(result.summary())
     _print_aggregates(result.records)
 

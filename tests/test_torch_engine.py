@@ -80,15 +80,23 @@ def tiny_engines(port_backend="cuda", **kw):
 
 
 @pytest.mark.parametrize("arch", ["chatglm3-6b", "gemma-7b",
-                                  "musicgen-medium", "phi-3-vision-4.2b"])
+                                  "musicgen-medium", "phi-3-vision-4.2b",
+                                  "mixtral-8x22b", "qwen3-moe-235b-a22b",
+                                  "zamba2-1.2b", "xlstm-125m"])
 def test_generate_gives_the_reference_tokens(arch):
     """Mixed prompt lengths (two prefill groups, continuous batching) and
-    an eos id: every request's tokens equal the reference's."""
+    an eos id: every request's tokens equal the reference's.  A hybrid's
+    prompts are multiples of its ``ssm_chunk`` (8 at smoke size), which
+    the reference's Mamba2 needs."""
     ref, port, cfg = lm_engines(arch)
-    lengths = (9, 6, 9, 6, 9)
+    lengths = ((16, 8, 16, 8, 16) if cfg.family == "hybrid"
+               else (9, 6, 9, 6, 9))
     ps = prompts(cfg, 0, lengths)
-    first = RefEngine.generate(ref, [RefRequest(rid=0, prompt=ps[0],
-                                                max_new_tokens=2)])
+    # Request 0's second token in the same batches (an MoE's capacity
+    # dispatch routes a token by its whole batch, so a request served
+    # alone may choose other tokens).
+    first = ref.generate([RefRequest(rid=i, prompt=p, max_new_tokens=2)
+                          for i, p in enumerate(ps)])
     eos = int(np.asarray(first[0].out_tokens[1]).flat[0])
     want = ref.generate([RefRequest(rid=i, prompt=p, max_new_tokens=5,
                                     eos_id=eos if i == 0 else None)
@@ -118,6 +126,29 @@ def test_generate_is_deterministic_and_greedy():
 
 
 # ------------------------------------------------------------- packing
+
+
+def test_pack_pytree_and_heal_on_the_list_shaped_ssm_tree():
+    """xlstm's blocks are a list of unlike dicts: the packed tile and a
+    heal of three replicas equal the reference's."""
+    ref, port, _ = lm_engines("xlstm-125m", dtype="bfloat16")
+    clean = jax.tree.map(np.asarray, ref.params)
+    want = ref._pack_pytree(clean)
+    got = port._pack_pytree(params_from_jax(clean, "cpu"))
+    assert np.array_equal(got[0], np.asarray(want[0])) and \
+        got[2:] == want[2:]
+    bad = jax.tree.map(lambda a: a.copy(), clean)
+    bad["blocks"][1]["mix"]["r_h"].view(np.uint16).reshape(-1)[4] ^= 0x0101
+    port = Engine(params_from_jax(clean, "cpu"),
+                  get_config("xlstm-125m", smoke=True), pud_backend="cuda",
+                  pud_ctx=CPU, device="cpu")
+    assert port.heal_params([params_from_jax(t, "cpu")
+                             for t in (bad, clean, clean)]) == \
+        ref.heal_params([bad, clean, clean]) == 2
+    assert isinstance(port.params["blocks"], list)
+    for a, b in zip(tree_util.flatten(port.params)[0],
+                    jax.tree.leaves(clean)):
+        assert a.view(torch.uint8).numpy().tobytes() == b.tobytes()
 
 
 def test_pack_pytree_tiles_equal_the_reference():
@@ -276,6 +307,22 @@ def test_launch_serve_smoke_on_the_cpu():
     for g, w in zip(got[1:], want[1:]):
         assert g.split(":")[0] == w.split(":")[0]
         assert len(json.loads(g.split(":")[1].split("...")[0])) == 4
+
+
+def test_launch_serve_zamba2_smoke_on_the_cpu():
+    """The hybrid family through the launcher (16-token prompts: a
+    multiple of the smoke config's ``ssm_chunk``)."""
+    argv = ["--arch", "zamba2-1.2b", "--smoke", "--requests", "2",
+            "--prompt-len", "16", "--max-new", "3", "--max-seq", "32"]
+    env = {**os.environ, "PYTHONPATH": SRC}
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *argv,
+         "--device", "cpu"], env=env, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    got = proc.stdout.splitlines()
+    assert got[0].startswith("[serve] zamba2-smoke: 2 requests, 6 tokens")
+    assert len(got) == 3
 
 
 def test_arena_releases_model_sized_reservations_in_linear_time():

@@ -110,3 +110,74 @@ def test_wrapper_passes_every_parameter(case, monkeypatch):
     (rec,) = recorders.values()
     assert len(rec.calls) == 1
     assert len(rec.calls[0]) == len(rec.argtypes)
+
+
+def test_concurrent_first_use_builds_once(tmp_path, monkeypatch):
+    """Threads that all launch one kernel first on a cold build
+    directory (the workers of ``run_sweep_ft``) start one build, load
+    one library and bind one entry point; each build's temporary file is
+    its own.  ``_start_build`` is a stand-in: no ``nvcc`` runs."""
+    import sys
+    import threading
+    import time
+
+    builds, loads = [], []
+
+    class Proc:
+        def __init__(self, tmp):
+            self.tmp = tmp
+
+        def wait(self):
+            time.sleep(0.05)        # a build takes a while
+            self.tmp.write_bytes(b"lib")
+            return 0
+
+    def start_build(name):
+        builds.append(name)
+        tmp = launch.library_path(name).with_suffix(f".tmp{len(builds)}")
+        return Proc(tmp), tmp
+
+    class Lib:
+        def __init__(self, path):
+            loads.append(path)
+            self.majx_launch = _Recorder([])
+
+    monkeypatch.setattr(launch, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(launch, "_start_build", start_build)
+    monkeypatch.setattr(launch, "_LIBRARIES", {})
+    monkeypatch.setattr(launch, "_ENTRIES", {})
+    monkeypatch.setattr(launch.ctypes, "CDLL", Lib)
+    got, errors = [], []
+    start = threading.Barrier(32, timeout=30)
+
+    def first_launch():
+        try:
+            start.wait()
+            got.append(launch.kernel("majx", "majx_launch", majx_ops._ARGS))
+        except Exception as e:     # reported by the assertion below
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=first_launch) for _ in range(32)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and errors == []
+    assert builds == ["majx"] and len(loads) == 1
+    assert len(got) == 32 and all(f is got[0] for f in got)
+    assert got[0].argtypes == majx_ops._ARGS
+    assert launch.library_path("majx").read_bytes() == b"lib"
+    assert sorted(p.name for p in tmp_path.iterdir()) == \
+        [launch.library_path("majx").name]
+    # Two builds of one source name distinct temporary files.
+    monkeypatch.undo()
+    monkeypatch.setattr(launch, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(launch, "_nvcc", lambda: "true")
+    (proc_a, tmp_a), (proc_b, tmp_b) = (launch._start_build("fanout"),
+                                        launch._start_build("fanout"))
+    assert proc_a.wait() == proc_b.wait() == 0 and tmp_a != tmp_b

@@ -310,17 +310,25 @@ def test_aggregates_equal_reference(tmp_path):
 
 
 def test_mesh_and_workers_wait_for_their_port(tmp_path):
+    """The mesh path and ``--workers`` are ported: a one-device mesh
+    gives the plain run's records, and ``--workers 2`` runs the
+    fault-tolerant runner (``tests/test_torch_ft.py`` holds both to the
+    reference)."""
+    from repro_torch.launch.mesh import make_test_mesh
+
+    mesh = make_test_mesh(model=1, device="cpu")
     spec = port.SweepSpec(name="mesh", **TINY)
-    with pytest.raises(NotImplementedError, match="ft/elastic"):
-        port.run_sweep(spec, str(tmp_path), mesh=object(), **CPU)
-    with pytest.raises(NotImplementedError, match="ft/elastic"):
-        port.run_adaptive(port.AdaptiveSpec(base=spec.replace(
-            n_act=(4, 32))), str(tmp_path), mesh=object(), **CPU)
-    err = io.StringIO()
-    with contextlib.redirect_stderr(err):
-        assert port_cli(["--smoke", "--workers", "2", "--root",
-                         str(tmp_path), "--device", "cpu"]) == 2
-    assert "ROADMAP queue 1 item 1" in err.getvalue()
+    assert port.run_sweep(spec, str(tmp_path / "m"), mesh=mesh,
+                          **CPU).records == \
+        port.run_sweep(spec, str(tmp_path / "plain"), **CPU).records
+    aspec = port.AdaptiveSpec(base=spec.replace(n_act=(4, 32)))
+    assert port.run_adaptive(aspec, str(tmp_path / "am"), mesh=mesh,
+                             **CPU).records == \
+        port.run_adaptive(aspec, str(tmp_path / "a"), **CPU).records
+    rc, out = _run(port_cli, ["--smoke", "--workers", "2", "--root",
+                              str(tmp_path), "--device", "cpu", "--quiet"])
+    assert rc == 0 and out[0].startswith("ft-sweep 'smoke'")
+    assert "across 2 workers" in out[0]
 
 
 # --------------------------------------------------------------- adaptive
