@@ -23,7 +23,11 @@ same sweep run fault-tolerantly (``run_sweep_ft``: worker threads with
 elastic membership and straggler re-dispatch) and placed over a device
 mesh.  The eighth is LM serving: ``Engine.generate`` over models of
 every family at their published widths, whose ``heal_params`` /
-``verify_params`` run through the service.
+``verify_params`` run through the service.  The ninth is training:
+``Trainer.run`` (data pipeline, ``loss_fn`` under remat, autograd,
+gradient compression, AdamW) at the published width and depth of two
+models, and ``python -m repro_torch.launch.train``'s restart from a TMR
+checkpoint store that the MAJX kernel votes.
 Phases, one JSON line each:
 
 1. build — compile the CUDA kernels of ``src/repro_torch/csrc`` with
@@ -111,9 +115,23 @@ Phases, one JSON line each:
    tokens routed to other experts than on the CPU are counted) and in
    bfloat16 against float32; MAJX and the mismatch count at the heal's
    shape against their plain versions and bounds;
-11. the kernels line, then ``{"ok": true, ...}`` as the last line.
+11. train — musicgen-medium (48 layers, 1.38 B params, bf16, full
+   remat) at batch 8 x seq 512 and xlstm-125m (12 layers, the int8
+   codec) at batch 4 x seq 128, 8 steps each through ``Trainer.run``
+   from a seed: each step's loss (finite, falling), wall and peak
+   memory, one more step split into gradients / codec / AdamW and one
+   profiled for the card's busy share, beside the step's bound;
+   ``launch.train.main`` on the smoke xlstm for 40 steps with a failure
+   at step 25 and a 3-replica TMR store (steps 20-24 replayed), then
+   the step-40 checkpoint with 64 bytes of one replica flipped,
+   restored through the MAJX kernel (one launch a leaf) and the plain
+   vote, each bit-equal to a clean replica; each model at 2 / 4 layers
+   in float32 on the card against the CPU (``loss_fn`` and every
+   gradient leaf), one step at ``microbatches=2`` against 1, and the
+   bfloat16 loss against the float32 one;
+12. the kernels line, then ``{"ok": true, ...}`` as the last line.
 
-Every kernel's launch count is zeroed just before phases 3-10 and read
+Every kernel's launch count is zeroed just before phases 3-11 and read
 just after each: the launches must add up to the backend's dispatches
 (the store's: one MAJX launch a leaf), and every kernel of the phase's
 path must have launched.
@@ -2222,32 +2240,42 @@ def lm_generate(torch, eng, cfg, prompt: int) -> dict:
                              for t in done[0].out_tokens[:8]]}
 
 
-def decode_profile(torch, eng, toks, cache) -> dict:
-    """The card's busy share over one decode step of the prompts
-    ``toks`` after their prefill's ``cache`` (a ``torch.profiler``
-    trace: device time of every kernel and copy, one stream, over the
-    step's wall)."""
+def profile_call(torch, fn) -> dict:
+    """The card's busy share over one call of ``fn`` (a
+    ``torch.profiler`` trace: device time of every kernel and copy, one
+    stream, over the call's wall), its device ops and its six longest
+    kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    step = toks[:, -1:]
-    eng._decode(eng.params, step, cache)
     _sync(torch)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng._decode(eng.params, step, cache)
+        fn()
         _sync(torch)
         wall = time.perf_counter() - t0
-    busy, n_ops = 0.0, 0
+    busy, n_ops, kernels = 0.0, 0, []
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
-            busy += getattr(e, "self_device_time_total",
-                            getattr(e, "self_cuda_time_total", 0)) / 1e6
+            t = getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0)) / 1e6
+            busy += t
             n_ops += e.count
+            kernels.append((t, e.count, e.key[:80]))
     return {"profiled_step_s": wall, "device_busy_s": busy or None,
             "device_busy_share": busy / wall if busy else None,
-            "device_ops": n_ops}
+            "device_ops": n_ops,
+            "top_kernels": [{"name": k, "device_s": t, "count": c}
+                            for t, c, k in sorted(kernels)[::-1][:6]]}
+
+
+def decode_profile(torch, eng, toks, cache) -> dict:
+    """:func:`profile_call` over one decode step of the prompts ``toks``
+    after their prefill's ``cache`` (after one unprofiled step)."""
+    step = toks[:, -1:]
+    eng._decode(eng.params, step, cache)
+    return profile_call(torch, lambda: eng._decode(eng.params, step, cache))
 
 
 def rel_err(torch, got, want) -> float:
@@ -2644,6 +2672,399 @@ def phase_lm_serve(torch, kernel_mods, timer) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ train
+#: The models the ``train`` phase trains at their published width and
+#: depth, each for TRAIN_STEPS steps through ``Trainer.run``: (arch,
+#: batch, seq, compression).  musicgen-medium takes 4,096 positions a
+#: step; xlstm-125m's batch is the reference's own full-width run
+#: (``examples/train_tiny_lm.py``), with the int8 codec at full width.
+TRAIN_RUNS = (("musicgen-medium", 8, 512, "none"),
+              ("xlstm-125m", 4, 128, "int8"))
+TRAIN_STEPS = 8
+TRAIN_LR = 1e-3          # the reference example's learning rate
+#: The card-against-CPU check: each model at full width and this depth
+#: (xlstm's 4 layers reach its first sLSTM layer, layer 3), on a batch
+#: of TRAIN_CHECK_BATCH x TRAIN_CHECK_SEQ.
+TRAIN_CHECK = (("musicgen-medium", 2), ("xlstm-125m", 4))
+TRAIN_CHECK_BATCH = 2
+TRAIN_CHECK_SEQ = 64
+#: float32 on the card against float32 on the CPU (TF32 off): the loss
+#: within 1e-5 relative, each gradient leaf within 1e-4 of its largest
+#: |g| (the CPU tests' tolerances against the reference).
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
+#: The restart run: the reference's documented invocation
+#: (``src/repro/launch/train.py:9-10``), on the card.
+TRAIN_RESTART_ARGV = ("--arch", "xlstm-125m", "--smoke", "--steps", "40",
+                      "--ckpt-every", "10", "--tmr", "3", "--fail-at", "25")
+TRAIN_FLIP_BYTES = 64    # bytes of one replica's shard flipped
+
+
+def train_bound(cfg, n_params: int, param_bytes: int, tokens: int,
+                compression: str) -> dict:
+    """The least time one train step could take: the larger of its
+    matrix operations (2 N a token forward, 2 N again to recompute under
+    remat, 4 N backward) at the bfloat16 tensor-core peak, and the
+    optimizer's bytes over HBM's rate: each gradient (the params' dtype,
+    ``param_bytes`` in all) read twice (norm, clip), m, v and the master
+    copy read and written in float32, the params written; the int8
+    codec adds a gradient read, the residual read and written and the
+    decoded gradient written and read."""
+    ops = (8 if cfg.remat != "none" else 6) * n_params * tokens
+    n_bytes = 3 * param_bytes + 3 * 2 * 4 * n_params
+    if compression != "none":
+        n_bytes += param_bytes + 2 * 4 * n_params + 2 * 4 * n_params
+    t_ops = ops / BF16_OPS_PER_S * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return {"compute_ms": t_ops, "optimizer_ms": t_bytes,
+            "optimizer_bytes_per_param": n_bytes / n_params,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def train_split(torch, step_fn, state, batch) -> dict:
+    """One train step's wall split into its gradient, codec and AdamW
+    parts (the card synchronised around each)."""
+    from repro_torch.optim import adamw
+    from repro_torch.optim import compression as comp
+    from repro_torch.train import step as train_step
+
+    with spans(torch, (("loss_and_grads", train_step, "loss_and_grads"),
+                       ("compress", comp, "compress"),
+                       ("apply_updates", adamw, "apply_updates"))) as secs:
+        _sync(torch)
+        t0 = time.perf_counter()
+        out = step_fn(state, batch)
+        _sync(torch)
+        wall = time.perf_counter() - t0
+    del out
+    return {"step_s": wall, **secs}
+
+
+def train_views_ab(torch, step_fn, state, batch) -> dict:
+    """The step with the layers' views of the stacked params taken one
+    ``select`` a layer (``common.layer``) against one ``unbind`` a leaf
+    (``common.layers``, what ``forward`` uses), in turns (select,
+    unbind, unbind, select; two steps each), then one profile of each."""
+    from repro_torch.models import model as M
+    from repro_torch.models.common import layer, layers
+
+    variants = {"select": lambda tree, n: [layer(tree, i)
+                                           for i in range(n)],
+                "unbind": layers}
+    walls = {k: [] for k in variants}
+    out = {}
+    try:
+        for name in ("select", "unbind", "unbind", "select"):
+            M.layers = variants[name]
+            for _ in range(2):
+                _sync(torch)
+                t0 = time.perf_counter()
+                step_fn(state, batch)
+                _sync(torch)
+                walls[name].append(time.perf_counter() - t0)
+        for name in variants:
+            M.layers = variants[name]
+            if DEVICE == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+                prof = profile_call(torch, lambda: step_fn(state, batch))
+                prof["peak_bytes"] = torch.cuda.max_memory_allocated()
+                del prof["top_kernels"]
+            else:
+                prof = {}
+            out[name] = {"walls_s": walls[name],
+                         "median_s": statistics.median(walls[name]),
+                         **prof}
+    finally:
+        M.layers = layers
+    return out
+
+
+def train_data(cfg, batch: int, seq: int, seed: int = LM_SEED):
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+
+    return SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
+        seed=seed, n_codebooks=cfg.n_codebooks))
+
+
+def train_run(torch, arch: str, batch: int, seq: int,
+              compression: str) -> dict:
+    """``Trainer.run`` over TRAIN_STEPS steps of ``arch`` at full width
+    and depth: each step's loss, wall and peak memory, one more step
+    profiled, and the step's bound."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import tree as tree_util
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = lm_config(arch)
+    tc = TrainConfig(lr=TRAIN_LR, total_steps=TRAIN_STEPS, warmup_steps=1,
+                     compression=compression)
+    data = train_data(cfg, batch, seq)
+    trainer = Trainer(cfg, tc, data, TrainerConfig(log_every=TRAIN_STEPS),
+                      log_fn=lambda line: print(line, file=sys.stderr,
+                                                flush=True),
+                      device=DEVICE)
+    step_fn, peaks = trainer.step_fn, []
+
+    def measured(state, b):
+        if DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        out = step_fn(state, b)
+        _sync(torch)
+        if DEVICE == "cuda":
+            peaks.append(torch.cuda.max_memory_allocated())
+        return out
+
+    trainer.step_fn = measured
+    t0 = time.perf_counter()
+    hist = trainer.run(TRAIN_STEPS)
+    wall = time.perf_counter() - t0
+    losses = [h["loss"] for h in hist]
+    check([h["step"] for h in hist] == list(range(TRAIN_STEPS)),
+          f"{arch}: recorded steps {[h['step'] for h in hist]}")
+    check(all(np.isfinite(losses)), f"{arch}: non-finite losses {losses}")
+    check(losses[-1] < losses[0], f"{arch}: the loss did not fall: {losses}")
+    state = trainer._state
+    params = tree_util.flatten(state.params)[0]
+    n_params = sum(t.numel() for t in params)
+    rep = {"layers": cfg.n_layers, "batch": batch, "seq": seq,
+           "tokens_per_step": batch * seq, "compression": compression,
+           "remat": cfg.remat, "params": n_params,
+           "state_bytes": tree_bytes(state), "run_s": wall,
+           "steps": [{"step": h["step"], "loss": h["loss"],
+                      "wall_s": h["time_s"],
+                      "peak_bytes": peaks[i] if peaks else None}
+                     for i, h in enumerate(hist)],
+           "step_s_median": statistics.median(h["time_s"]
+                                              for h in hist[1:]),
+           "bound": train_bound(cfg, n_params, tree_bytes(state.params),
+                                batch * seq, compression)}
+    rep["split_s"] = train_split(torch, step_fn, state,
+                                 data.batch(TRAIN_STEPS))
+    if cfg.family != "ssm":   # the ssm family keeps a list of layers
+        rep["views_ab"] = train_views_ab(torch, step_fn, state,
+                                         data.batch(TRAIN_STEPS))
+    if DEVICE == "cuda":
+        batch_t = data.batch(TRAIN_STEPS)
+        rep["profile"] = profile_call(torch,
+                                      lambda: step_fn(state, batch_t))
+    del trainer, state, params
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return rep
+
+
+def flip_shard_bytes(path: str, n: int) -> str:
+    """Flip ``n`` bytes in the middle of the largest leaf of a replica's
+    shard and write it back (the archive stays readable; the manifest's
+    crc32 fails); returns the leaf's key."""
+    with np.load(path) as data:
+        arrays = {k: data[k] for k in data.files}
+    key = max(arrays, key=lambda k: arrays[k].nbytes)
+    raw = arrays[key].view(np.uint8).reshape(-1)
+    mid = raw.size // 2
+    raw[mid:mid + n] ^= 0xA5
+    np.savez(path, **arrays)
+    return key
+
+
+def train_restart(torch, kernel_mods) -> dict:
+    """``launch.train.main`` with a failure at step 25 and a TMR store of
+    three replicas on the card; then the step-40 checkpoint restored
+    from a clean replica, one replica corrupted, and the store's voted
+    restore through the MAJX kernel (one launch a leaf) and the plain
+    vote, each bit-equal to the clean checkpoint."""
+    import tempfile
+
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.ckpt import tmr_store
+    from repro_torch.core import tree as tree_util
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import trainer as trainer_mod
+    from repro_torch.train.step import init_train_state
+
+    trainers, real_run = [], trainer_mod.Trainer.run
+
+    def run(self, steps):
+        trainers.append(self)
+        return real_run(self, steps)
+
+    rep, secs = {"argv": list(TRAIN_RESTART_ARGV)}, {}
+    with tempfile.TemporaryDirectory(prefix="train_ckpt") as d:
+        out = io.StringIO()
+        trainer_mod.Trainer.run = run
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = launch_train.main(list(TRAIN_RESTART_ARGV) + [
+                    "--device", DEVICE, "--ckpt-dir", d])
+            secs["main"] = time.perf_counter() - t0
+        finally:
+            trainer_mod.Trainer.run = real_run
+        lines = out.getvalue().splitlines()
+        check(rc == 0 and len(trainers) == 1, f"train main: rc {rc}, "
+              f"{len(trainers)} trainers")
+        trainer = trainers[0]
+        hist = trainer.history
+        steps = [h["step"] for h in hist]
+        losses = [h["loss"] for h in hist]
+        check(steps == list(range(25)) + list(range(20, 40)),
+              f"restart: recorded steps {steps}")
+        check("[trainer] restored step 20" in lines and any(
+            "FAILURE: node_loss at step 25" in ln for ln in lines),
+            f"restart: log {lines}")
+        check(lines[-1].startswith("[train] xlstm-smoke: loss ") and
+              lines[-1].endswith(f"over {len(hist)} recorded steps"),
+              f"restart: last line {lines[-1]!r}")
+        check(all(np.isfinite(losses)) and
+              np.mean(losses[-5:]) < np.mean(losses[:5]),
+              f"restart: the loss did not fall: {losses}")
+        cfg = trainer.cfg
+        proto, _ = init_train_state(trainer.tc.seed, cfg, device=DEVICE)
+        leaves = tree_util.flatten(proto)[0]
+        t0 = time.perf_counter()
+        want, at = ckpt.restore(proto, os.path.join(d, "replica_0"))
+        secs["restore_clean"] = time.perf_counter() - t0
+        want_leaves = tree_util.flatten(want)[0]
+
+        def same(tree) -> bool:
+            return all(a.device == b.device and a.dtype == b.dtype and
+                       torch.equal(a.reshape(-1).view(torch.uint8),
+                                   b.reshape(-1).view(torch.uint8))
+                       for a, b in zip(tree_util.flatten(tree)[0],
+                                       want_leaves))
+
+        check(at == 40 and same(trainer._state),
+              f"restart: the step-{at} checkpoint != the trained state")
+        shard = os.path.join(d, "replica_1", "step_00000040",
+                             "shard_p0.npz")
+        rep["flipped_leaf"] = flip_shard_bytes(shard, TRAIN_FLIP_BYTES)
+        try:
+            ckpt.restore(proto, os.path.join(d, "replica_1"))
+        except IOError as err:
+            check("crc mismatch" in str(err), f"corruption: {err}")
+        else:
+            raise AssertionError("the corrupted replica restored verified")
+        for use_kernel in (True, False):
+            before = kernel_mods["majx"].launches
+            t0 = time.perf_counter()
+            got, at, bad = tmr_store.restore(proto, d, use_kernel=use_kernel)
+            _sync(torch)
+            key = "restore_kernel" if use_kernel else "restore_plain"
+            secs[key] = time.perf_counter() - t0
+            majx = kernel_mods["majx"].launches - before
+            want_majx = len(leaves) if use_kernel and DEVICE == "cuda" else 0
+            check((at, bad) == (40, 1), f"{key}: step {at}, {bad} bad")
+            check(majx == want_majx, f"{key}: {majx} MAJX launches for "
+                  f"{len(leaves)} leaves")
+            check(same(got), f"{key} != the clean step-40 checkpoint")
+    rep.update({"recorded_steps": len(hist), "losses": losses,
+                "step_s_median": statistics.median(h["time_s"]
+                                                   for h in hist),
+                "leaves": len(leaves), "state_bytes": tree_bytes(proto),
+                "host_s": secs, "last_line": lines[-1]})
+    return rep
+
+
+def train_check(torch, arch: str, layers: int) -> dict:
+    """At full width and ``layers`` layers, one set of float32 weights on
+    the card and the CPU: ``loss_fn`` and every gradient leaf; one
+    ``make_train_step`` at ``microbatches=1`` against ``=2`` on the card
+    (the reference's test tolerances); the bfloat16 loss against the
+    float32 one."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import tree as tree_util
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.optim import compression as comp
+    from repro_torch.train import step as train_step
+
+    cfg32 = lm_config(arch, n_layers=layers, dtype="float32")
+    cfg16 = lm_config(arch, n_layers=layers)
+    batch = train_data(cfg32, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ,
+                       seed=LM_SEED + 3).batch(0)
+    # Equal seeds draw equal float32 normals: the bfloat16 weights are
+    # the float32 ones rounded, the norms equal.
+    p32, _ = M.init(LM_SEED, cfg32, device=DEVICE)
+    out = {}
+    for where, params in (("card", p32),
+                          ("cpu", tree_map(lambda t: t.cpu(), p32))):
+        dev = tree_util.flatten(params)[0][0].device
+        loss, _, grads = train_step.loss_and_grads(
+            params, train_step.batch_to(batch, dev), cfg32, 1e-4)
+        out[where] = (loss.cpu(), [g.cpu() for g in
+                                   tree_util.flatten(grads)[0]])
+    loss_err = rel_err(torch, out["card"][0], out["cpu"][0])
+    grad_errs = [float((a - b).abs().max() / b.abs().max())
+                 if float(b.abs().max()) > 0 else float(a.abs().max())
+                 for a, b in zip(out["card"][1], out["cpu"][1])]
+    names = [n for n, _ in tree_util.flatten_with_path(p32)[0]]
+    worst = names[int(np.argmax(grad_errs))]
+    check(all(bool(torch.isfinite(g).all()) for g in out["card"][1]),
+          f"{arch}: non-finite gradients on the card")
+    check(loss_err <= TRAIN_LOSS_TOL, f"{arch}: the card's loss differs "
+          f"from the CPU's by {loss_err}")
+    check(max(grad_errs) <= TRAIN_GRAD_TOL, f"{arch}: a gradient leaf on "
+          f"the card differs from the CPU's by {max(grad_errs)} of its "
+          f"largest")
+    del out
+    state = train_step.TrainState(p32, adamw.init_state(p32),
+                                  comp.init_feedback(p32))
+    mb = {}
+    for n in (1, 2):
+        new, metrics = train_step.make_train_step(
+            cfg32, TrainConfig(microbatches=n))(state, batch)
+        mb[n] = (float(metrics["loss"]), tree_util.flatten(new.params)[0])
+    mb_loss = abs(mb[1][0] - mb[2][0]) / abs(mb[2][0])
+    mb_param = max(float((a - b).abs().max())
+                   for a, b in zip(mb[1][1], mb[2][1]))
+    check(mb_loss <= 1e-3 and mb_param <= 5e-3, f"{arch}: microbatches 2 "
+          f"against 1: loss {mb_loss} relative, params {mb_param}")
+    del state, mb
+    p16, _ = M.init(LM_SEED, cfg16, device=DEVICE)
+    with torch.no_grad():
+        b = train_step.batch_to(batch, DEVICE)
+        l16, _ = M.loss_fn(p16, b, cfg16)
+        l32, _ = M.loss_fn(p32, b, cfg32)
+    check(bool(torch.isfinite(l16)), f"{arch}: non-finite bfloat16 loss")
+    return {"layers": layers, "batch": TRAIN_CHECK_BATCH,
+            "seq": TRAIN_CHECK_SEQ, "loss_card_vs_cpu": loss_err,
+            "grad_card_vs_cpu_max": max(grad_errs),
+            "grad_card_vs_cpu_worst_leaf": worst,
+            "loss_tol": TRAIN_LOSS_TOL, "grad_tol": TRAIN_GRAD_TOL,
+            "microbatch_loss_rel": mb_loss, "microbatch_param_abs": mb_param,
+            "loss_f32": float(l32), "loss_bf16": float(l16),
+            "loss_bf16_vs_f32": abs(float(l16) - float(l32))
+            / abs(float(l32))}
+
+
+def phase_train(torch, kernel_mods) -> dict:
+    """Training on the card: each model of TRAIN_RUNS trained at full
+    width and depth by ``Trainer.run``; the launcher's restart from a
+    TMR store, voted through MAJX; each model of TRAIN_CHECK on the card
+    against the CPU; returns each kernel's launches."""
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: float32 checks would not be float32")
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    zero_launches(kernel_mods)
+    t_phase = time.perf_counter()
+    for arch, batch, seq, compression in TRAIN_RUNS:
+        rep = train_run(torch, arch, batch, seq, compression)
+        progress(f"train {arch}", t_phase)
+        emit({"phase": "train", "model": arch, **rep})
+    restart = train_restart(torch, kernel_mods)
+    progress("train restart and TMR restore", t_phase)
+    emit({"phase": "train", "restart": restart})
+    for arch, layers in TRAIN_CHECK:
+        rep = train_check(torch, arch, layers)
+        progress(f"train {arch}: {layers}-layer checks", t_phase)
+        emit({"phase": "train", "model": arch, "check": rep})
+    want = restart["leaves"] if DEVICE == "cuda" else 0
+    return read_launches(kernel_mods, ("majx",), want, "train")
+
+
 def main() -> int:
     import torch
 
@@ -2682,6 +3103,7 @@ def main() -> int:
     sweep = timed("sweep", phase_sweep, torch, kernel_mods)
     sweep_ft = timed("sweep_ft", phase_sweep_ft, torch, kernel_mods)
     lm = timed("lm_serve", phase_lm_serve, torch, kernel_mods, timer)
+    train = timed("train", phase_train, torch, kernel_mods)
     emit({"phase": "walls", "seconds": walls})
 
     replaces = {
@@ -2704,7 +3126,7 @@ def main() -> int:
             "replaces": replaces[name],
             "launches": (path[name] + session[name] + arith[name]
                          + serve[name] + tmr[name] + sweep[name]
-                         + sweep_ft[name] + lm[name]),
+                         + sweep_ft[name] + lm[name] + train[name]),
             "launches_by_path": {"path": path[name],
                                  "session": session[name],
                                  "arith": arith[name],
@@ -2712,7 +3134,8 @@ def main() -> int:
                                  "tmr_ckpt": tmr[name],
                                  "sweep": sweep[name],
                                  "sweep_ft": sweep_ft[name],
-                                 "lm_serve": lm[name]},
+                                 "lm_serve": lm[name],
+                                 "train": train[name]},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -14,7 +14,10 @@ state.  What crosses between them is plain data — JSON and numpy arrays
   (rows, words) image to and from the port's int32 tensors;
 * :func:`params_from_jax` / :func:`params_to_numpy` — a model's
   parameter tree (numpy arrays, bfloat16 ones included) to and from the
-  port's tensors.
+  port's tensors;
+* :func:`train_state_from_jax` / :func:`train_state_to_numpy` — a
+  training state (params, AdamW state with its int32 step, error
+  feedback) to and from the port's ``TrainState``.
 """
 
 from __future__ import annotations
@@ -30,7 +33,10 @@ from repro_torch.compile.trace import CompiledProgram
 from repro_torch.core import tree as tree_util
 from repro_torch.core.bitplanes import from_u32 as state_to_device  # noqa
 from repro_torch.core.bitplanes import to_u32 as state_to_numpy  # noqa
+from repro_torch.optim.adamw import AdamWState
+from repro_torch.optim.compression import ErrorFeedback
 from repro_torch.pud.isa import Program
+from repro_torch.train.step import TrainState
 
 #: The reference context's TPU execution knobs, which have no meaning
 #: here and are dropped.
@@ -130,3 +136,25 @@ def params_to_numpy(tree):
     leaves, structure = tree_util.flatten(tree)
     return tree_util.unflatten(structure,
                                [_leaf_to_numpy(x) for x in leaves])
+
+
+def train_state_from_jax(state, device="cuda") -> TrainState:
+    """The port's ``TrainState`` on ``device`` for a reference one whose
+    leaves are numpy arrays (``jax.tree.map(np.asarray, state)``): its
+    ``(params, (step, m, v, master), (residual,))``, bfloat16 leaves
+    taken by their bits and the step kept ``int32``."""
+    params, (step, m, v, master), (residual,) = state
+    return TrainState(
+        params=params_from_jax(params, device),
+        opt=AdamWState(step=_leaf_to_tensor(step, device),
+                       m=params_from_jax(m, device),
+                       v=params_from_jax(v, device),
+                       master=params_from_jax(master, device)),
+        feedback=ErrorFeedback(params_from_jax(residual, device)))
+
+
+def train_state_to_numpy(state: TrainState) -> TrainState:
+    """The inverse of :func:`train_state_from_jax`: the same
+    ``TrainState`` of numpy arrays (bfloat16 leaves as
+    ``ml_dtypes.bfloat16``)."""
+    return params_to_numpy(state)

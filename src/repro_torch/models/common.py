@@ -139,3 +139,15 @@ def layer(tree, i: int):
     if isinstance(tree, dict):
         return {k: layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def layers(tree, n: int) -> list:
+    """All ``n`` layers' views of a stacked param dict, from one
+    ``unbind`` a leaf.  Under autograd a leaf's gradient is then stacked
+    once from the layers' gradients; ``n`` views taken by :func:`layer`
+    would each give back a zero-filled gradient of the whole stack, and
+    summing those moves ``n`` times the stack's bytes."""
+    if isinstance(tree, dict):
+        per = {k: layers(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    return list(tree.unbind(0))

@@ -143,8 +143,13 @@ def mamba2_forward(params, x: torch.Tensor, cfg: ModelConfig,
         # intra-chunk quadratic form
         # L[t,s] = exp(cum_t - cum_s) for s <= t  (per head)
         rel = cum[:, :, None, :] - cum[:, None, :, :]      # (B,t,s,H)
-        L = torch.where(mask[None, :, :, None], torch.exp(rel),
-                        torch.zeros((), device=x.device))
+        # Masked before the exp (the reference masks after it): above
+        # the diagonal rel grows with the chunk's decay, and once its
+        # exp overflows, the backward pass's 0 * inf is NaN.  Equal
+        # values; finite gradients.
+        L = torch.exp(torch.where(mask[None, :, :, None], rel,
+                                  torch.tensor(float("-inf"),
+                                               device=x.device)))
         g = torch.einsum("btn,bsn->bts", ck, bk)           # (B,t,s)
         dx = xk.float() * dtk[..., None]                   # (B,s,H,P)
         y_intra = torch.einsum("bts,btsh,bshp->bthp", g, L, dx)

@@ -4,6 +4,7 @@ Public API (functional, as the reference's):
 
   init(key, cfg, device=)              -> (params, axes)
   forward(params, batch, cfg)          -> (logits, aux)
+  loss_fn(params, batch, cfg, ...)     -> (loss, metrics)
   prefill(params, batch, cfg, max_seq) -> (logits, cache)
   decode(params, tokens, cache, cfg)   -> (logits, cache)   (one step)
   fresh_cache(cfg, batch, max_seq)     -> cache
@@ -14,20 +15,30 @@ Transformer, MoE and Mamba blocks keep the reference's stacked
 Python loop runs over layer views.  The ``ssm`` family's blocks are a
 list of unlike dicts (mLSTM or sLSTM), and the ``hybrid`` and ``ssm``
 caches are lists of NamedTuples, as in the reference.
+
+When autograd records, ``forward`` runs each layer under the config's
+rematerialization policy, where the reference wraps its scan body in
+``jax.checkpoint``: ``"full"`` keeps only each layer's input
+(``torch.utils.checkpoint``), ``"dots"`` also keeps the outputs of the
+plain matrix products (selective checkpointing; the reference's
+``dots_with_no_batch_dims_saveable``), ``"none"`` keeps everything.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Union
+from typing import Any, NamedTuple, Optional, Union
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.sharding import constraint
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, mlp, moe, xlstm
 from repro_torch.models.common import (embed_init, generator, layer,
-                                       rms_norm, stack_params, zeros_f32)
+                                       layers, rms_norm, stack_params,
+                                       zeros_f32)
 
 #: The families this module runs.
 FAMILIES = ("dense", "moe", "hybrid", "ssm", "audio", "vlm")
@@ -225,23 +236,56 @@ def _ssm_mix(bp, x, i: int, cfg: ModelConfig):
     return xlstm.mlstm_forward(bp["mix"], h, cfg)
 
 
+#: The plain matrix products (no batch dimension) that ``"dots"`` keeps.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _save_dots():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _remat(fn, policy: str):
+    """``fn`` under rematerialization ``policy`` (``none`` / ``full`` /
+    ``dots``) while autograd records; ``fn`` itself otherwise."""
+    if policy == "none":
+        return fn
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        kw = {"context_fn": _save_dots} if policy == "dots" else {}
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return run
+
+
+def _ssm_layer(bp, x, i: int, cfg: ModelConfig):
+    y, _ = _ssm_mix(bp, x, i, cfg)
+    return constraint(x + y, ("batch", "sp", None))
+
+
 def forward(params, batch, cfg: ModelConfig):
     """Logits over the whole sequence, and the summed MoE aux loss."""
     x, positions = _inputs(params, batch, cfg)
     x = constraint(x, ("batch", "sp", None))
     aux_total = _zero(x)
     if cfg.family in _TRANSFORMER:
-        for i in range(cfg.n_layers):
-            x, a = _tblock_forward(layer(params["blocks"], i), x, positions,
-                                   cfg)
+        block = _remat(_tblock_forward, cfg.remat)
+        for lp in layers(params["blocks"], cfg.n_layers):
+            x, a = block(lp, x, positions, cfg)
             if a is not None:
                 aux_total = aux_total + a
     elif cfg.family == "hybrid":
         x, aux_total = _zamba_forward(params, x, positions, cfg)
     else:
+        # the reference checkpoints each ssm layer fully under any policy
+        ssm = _remat(_ssm_layer, "none" if cfg.remat == "none" else "full")
         for i, bp in enumerate(params["blocks"]):
-            y, _ = _ssm_mix(bp, x, i, cfg)
-            x = constraint(x + y, ("batch", "sp", None))
+            x = ssm(bp, x, i, cfg)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = _head(params["head"], params["embed"], x, cfg)
     if cfg.family == "vlm" and "patches" in batch:
@@ -280,18 +324,65 @@ def _stack_states(states: list):
     return type(states[0])(*(torch.stack(leaves) for leaves in zip(*states)))
 
 
+def _mamba_residual(lp, ln, x, cfg: ModelConfig):
+    y, _ = mamba2.mamba2_forward(lp, rms_norm(x, ln, cfg.norm_eps), cfg)
+    return constraint(x + y, ("batch", "sp", None))
+
+
 def _zamba_forward(params, x, positions, cfg: ModelConfig):
     groups, n_full = _group_layers(cfg)
+    body = _remat(_mamba_residual, cfg.remat)
+    shared = _remat(_tblock_forward, cfg.remat)
+    blocks = layers(params["blocks"], cfg.n_layers)
+    lns = params["mamba_ln"].unbind(0)
     aux = _zero(x)
     for g, idx in enumerate(groups):
         for i in idx:
-            y, _ = _mamba_layer(params, x, i, cfg)
-            x = constraint(x + y, ("batch", "sp", None))
+            x = body(blocks[i], lns[i], x, cfg)
         if g < n_full:
-            x, a = _tblock_forward(params["shared_attn"], x, positions, cfg)
+            x, a = shared(params["shared_attn"], x, positions, cfg)
             if a is not None:
                 aux = aux + a
     return x, aux
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+
+def loss_fn(params, batch, cfg: ModelConfig, z_loss: float = 1e-4,
+            aux_coef: Optional[float] = None):
+    """Mean next-token cross-entropy (masked where ``batch["mask"]`` is
+    given) plus ``z_loss`` times the mean squared log-partition, plus the
+    MoE aux loss; returns ``(loss, {nll, z_loss, moe_aux})``.
+
+    The label's logit is taken with ``torch.gather``; the reference
+    contracts with a one-hot instead, so that XLA keeps the vocabulary
+    dimension sharded.  Both give the same number for finite logits, and
+    the gather builds no (B, S, V) one-hot.
+    """
+    logits, aux = forward(params, batch, cfg)
+    labels = batch["labels"]
+    lg = logits.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    ll = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if "mask" in batch:
+        mask = batch["mask"].float()
+        if mask.dim() < nll.dim():
+            mask = mask[..., None]
+        denom = torch.clamp(mask.sum(), min=1.0)
+        loss = (nll * mask).sum() / denom
+        zl = (torch.square(lse) * mask).sum() / denom
+    else:
+        loss = nll.mean()
+        zl = torch.square(lse).mean()
+    total = loss + z_loss * zl
+    coef = cfg.router_aux_coef if aux_coef is None else aux_coef
+    if cfg.is_moe:
+        total = total + coef * aux / cfg.n_layers
+    return total, {"nll": loss, "z_loss": zl, "moe_aux": aux}
 
 
 # ---------------------------------------------------------------------------

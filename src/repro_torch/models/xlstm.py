@@ -249,7 +249,9 @@ def _slstm_step(params, state: SLSTMState, xt: torch.Tensor) -> SLSTMState:
     f_ = torch.exp(logf + state.m - m_new)
     c = f_ * state.c + i_ * torch.tanh(z_raw)
     n = f_ * state.n + i_
-    h = torch.sigmoid(o_raw) * c / torch.clamp(n, min=1.0)
+    # ``maximum`` as the reference's ``jnp.maximum``: where n is exactly 1
+    # (the first step) both split the gradient in two; ``clamp`` does not
+    h = torch.sigmoid(o_raw) * c / torch.maximum(n, n.new_ones(()))
     return SLSTMState(c=c, n=n, h=h, m=m_new)
 
 

@@ -761,3 +761,50 @@ def test_engine_generates_and_heals_on_the_card(cuda_device):
         assert torch.equal(a.view(-1).view(torch.uint8),
                            b.reshape(-1).view(torch.uint8))
     assert card.verify_params(params) == 1.0
+
+
+@pytest.mark.cuda
+def test_train_steps_on_the_card_match_the_cpu(cuda_device, tmp_path):
+    """Two train steps of a float32 smoke model on the card against the
+    same steps on the CPU (losses within 1e-4, params within the
+    ``2 * lr * steps`` of AdamW's sign noise); the trainer's TMR store
+    then votes the card's state through the MAJX kernel, one launch a
+    leaf, bit for bit."""
+    import dataclasses
+
+    from repro_torch.ckpt import tmr_store
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import tree as tree_util
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.train import step as train_step
+
+    cfg = dataclasses.replace(get_config("chatglm3-6b", smoke=True),
+                              dtype="float32")
+    tc = TrainConfig(lr=3e-3, warmup_steps=1, total_steps=10)
+    host, _ = train_step.init_train_state(0, cfg, device="cpu")
+    leaves, structure = tree_util.flatten(host)
+    card = tree_util.unflatten(structure,
+                               [t.to(cuda_device) for t in leaves])
+    step = train_step.make_train_step(cfg, tc)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
+                                  global_batch=4))
+    for i in range(2):
+        host, want = step(host, data.batch(i))
+        card, got = step(card, data.batch(i))
+        assert abs(float(got["loss"]) - float(want["loss"])) <= \
+            1e-4 * abs(float(want["loss"]))
+    assert card.opt.step.dtype == torch.int32 and int(card.opt.step) == 2
+    for a, b in zip(tree_util.flatten(card)[0], tree_util.flatten(host)[0]):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+    for a, b in zip(tree_util.flatten(card.params)[0],
+                    tree_util.flatten(host.params)[0]):
+        assert (a.cpu() - b).abs().max() <= 2 * tc.lr * 2
+    tmr_store.save(card, str(tmp_path), 2, replicas=3)
+    before = majx_ops.launches
+    voted, at, bad = tmr_store.restore(card, str(tmp_path), use_kernel=True)
+    leaves = tree_util.flatten(card)[0]
+    assert (at, bad) == (2, 0)
+    assert majx_ops.launches == before + len(leaves)
+    for a, b in zip(tree_util.flatten(voted)[0], leaves):
+        assert a.device.type == "cuda" and torch.equal(a, b)
