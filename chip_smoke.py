@@ -129,12 +129,21 @@ Phases, one JSON line each:
    in float32 on the card against the CPU (``loss_fn`` and every
    gradient leaf), one step at ``microbatches=2`` against 1, and the
    bfloat16 loss against the float32 one;
-12. the kernels line, then ``{"ok": true, ...}`` as the last line.
+12. dryrun — ``python -m repro_torch.launch.dryrun`` in one process a
+   cell, all at once, on a fake world of 256 ranks (the (16, 16)
+   production mesh; one cell on the (2, 16, 16) multi-pod mesh of 512):
+   the port's real step laid out as DTensors over ``meta`` tensors, no
+   card touched; each cell's per-chip memory, FLOPs, collective bytes
+   by kind, bound and roofline fraction; then the dry run's counting on
+   a one-device mesh applied to the ``train`` phase's two runs, its
+   FLOPs beside ``train_bound``'s 8 N a token and its peak beside the
+   peak the card measured in phase 11;
+13. the kernels line, then ``{"ok": true, ...}`` as the last line.
 
-Every kernel's launch count is zeroed just before phases 3-11 and read
+Every kernel's launch count is zeroed just before phases 3-12 and read
 just after each: the launches must add up to the backend's dispatches
 (the store's: one MAJX launch a leaf), and every kernel of the phase's
-path must have launched.
+path must have launched; ``dryrun`` launches none.
 Any failed check raises, so the script exits non-zero and prints no
 result.  It needs ``torch.cuda.is_available()`` and the repository's
 ``src/`` and ``tests/golden/`` beside it.
@@ -2780,6 +2789,11 @@ def train_views_ab(torch, step_fn, state, batch) -> dict:
     return out
 
 
+#: Each ``train_run``'s largest peak of ``max_memory_allocated`` over
+#: its steps, by arch (for the ``dryrun`` phase's one-card check).
+TRAIN_PEAKS: dict = {}
+
+
 def train_data(cfg, batch: int, seq: int, seed: int = LM_SEED):
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
 
@@ -2840,6 +2854,7 @@ def train_run(torch, arch: str, batch: int, seq: int,
                                               for h in hist[1:]),
            "bound": train_bound(cfg, n_params, tree_bytes(state.params),
                                 batch * seq, compression)}
+    TRAIN_PEAKS[arch] = max(peaks) if peaks else None
     rep["split_s"] = train_split(torch, step_fn, state,
                                  data.batch(TRAIN_STEPS))
     if cfg.family != "ssm":   # the ssm family keeps a list of layers
@@ -3065,6 +3080,162 @@ def phase_train(torch, kernel_mods) -> dict:
     return read_launches(kernel_mods, ("majx",), want, "train")
 
 
+# ------------------------------------------------------------ dryrun
+#: The fake-world cells: (arch, shape, multi-pod).  Four families at
+#: train_4k, a decode cell, a 500k-token cell and one on the multi-pod
+#: mesh; each runs in a process of its own, all at once.  zamba2-1.2b's
+#: and xlstm-125m's train_4k cells take 2 and 7 minutes to count (their
+#: recurrences, step by step): they run in ``--all``, not here.
+DRYRUN_CELLS = (("chatglm3-6b", "train_4k", False),
+                ("mixtral-8x22b", "train_4k", False),
+                ("musicgen-medium", "train_4k", False),
+                ("phi-3-vision-4.2b", "train_4k", False),
+                ("chatglm3-6b", "decode_32k", False),
+                ("xlstm-125m", "long_500k", False),
+                ("chatglm3-6b", "decode_32k", True))
+#: Grad-accumulation microbatches of the train cells (the reference's
+#: dry run defaults to 4, which takes about twice as long to count).
+DRYRUN_MICROBATCHES = 1
+DRYRUN_TIMEOUT = 900     # seconds a cell's process may take
+#: The one-card count of a ``train`` run, in a process of its own: a
+#: one-device mesh on ``meta`` (no DTensor, no card), the run's config,
+#: batch, sequence and codec.
+DRYRUN_ONE_CARD = r"""
+import dataclasses, json, sys
+import torch
+from repro_torch.configs.base import TrainConfig
+from repro_torch.configs.registry import SHAPES, get_config
+from repro_torch.dist.sharding import Mesh
+from repro_torch.launch.dryrun import count_cell
+arch, batch, seq, codec, smoke = sys.argv[1:6]
+shape = dataclasses.replace(SHAPES["train_4k"], seq_len=int(seq),
+                            global_batch=int(batch))
+mesh = Mesh([[torch.device("meta")]], ("data", "model"))
+c = count_cell(get_config(arch, smoke=smoke == "1"), shape, mesh,
+               tc=TrainConfig(compression=codec))
+print(json.dumps({"flops": c.flops, "bytes_accessed": c.bytes_accessed,
+                  "peak_bytes": c.peak_bytes,
+                  "argument_bytes": c.argument_bytes, "run_s": c.wall_s,
+                  "local_ops": c.local_ops}))
+"""
+
+
+def dryrun_procs(cmds: list) -> list:
+    """Run each command in a process of its own, all at once, with
+    ``src/`` on the path and no card visible; each ``(rc, stdout,
+    stderr, wall_s)``.  Every process is waited for or killed."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    t0, procs = time.perf_counter(), []
+    try:
+        for cmd in cmds:
+            procs.append(subprocess.Popen(
+                [sys.executable] + cmd, env=env, cwd=ROOT, text=True,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+        out = []
+        for p in procs:
+            try:
+                stdout, stderr = p.communicate(
+                    timeout=max(1.0, DRYRUN_TIMEOUT
+                                - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                stdout, stderr = p.communicate()
+                stderr += f"\nkilled after {DRYRUN_TIMEOUT} s"
+            out.append((p.returncode, stdout, stderr,
+                        time.perf_counter() - t0))
+        return out
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def phase_dryrun() -> dict:
+    """The dry run's cells on a fake world, and its one-card count of the
+    ``train`` phase's runs beside what the card measured there."""
+    import tempfile
+
+    smoke = "1" if LM_SMOKE else "0"
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dryrun") as d:
+        cmds = []
+        for i, (arch, shape, multi) in enumerate(DRYRUN_CELLS):
+            cmds.append(["-m", "repro_torch.launch.dryrun", "--arch", arch,
+                         "--shape", shape, "--microbatches",
+                         str(DRYRUN_MICROBATCHES),
+                         "--out", os.path.join(d, f"{i}.json")]
+                        + ["--multipod"] * multi)
+        for arch, batch, seq, codec in TRAIN_RUNS:
+            cmds.append(["-c", DRYRUN_ONE_CARD, arch, str(batch), str(seq),
+                         codec, smoke])
+        done = dryrun_procs(cmds)
+        cells = []
+        for i, (arch, shape, multi) in enumerate(DRYRUN_CELLS):
+            rc, stdout, stderr, wall = done[i]
+            try:
+                with open(os.path.join(d, f"{i}.json")) as f:
+                    (row,) = json.load(f)
+            except (OSError, ValueError):
+                row = {"status": "error", "error": stderr[-2000:]}
+            check(row["status"] in ("ok", "skipped"),
+                  f"dryrun {arch} {shape}: {row.get('error', row)}")
+            check(rc == 0, f"dryrun {arch} {shape}: exit {rc}: "
+                  f"{stderr[-2000:]}")
+            r = row.get("roofline", {})
+            cell = {"arch": arch, "shape": shape, "status": row["status"],
+                    "mesh": row.get("mesh"), "process_wall_s": wall,
+                    "count_s": row.get("compile_s"),
+                    "memory_gb": row.get("memory", {}).get("total_gb"),
+                    "flops_per_chip": row.get("counts", {}).get(
+                        "flops_per_chip"),
+                    "bytes_per_chip": row.get("counts", {}).get(
+                        "bytes_per_chip"),
+                    "collective_gb_by_kind": row.get(
+                        "collectives", {}).get("per_kind_gb"),
+                    "collective_ops": row.get("collectives", {}).get(
+                        "n_ops"),
+                    "bound": r.get("bottleneck"),
+                    "t_compute_s": r.get("t_compute_s"),
+                    "t_memory_s": r.get("t_memory_s"),
+                    "t_collective_s": r.get("t_collective_s"),
+                    "roofline_fraction": r.get("roofline_fraction"),
+                    "dtensor_ops": row.get("counts", {}).get("dtensor_ops")}
+            if row["status"] == "ok":
+                check(cell["flops_per_chip"] > 0 and cell["collective_ops"]
+                      > 0 and cell["memory_gb"] > 0,
+                      f"dryrun {arch} {shape}: empty counts {cell}")
+            cells.append(cell)
+            emit({"phase": "dryrun", "cell": cell})
+        progress("dryrun fake-world cells", t_phase)
+        one_card = []
+        for j, (arch, batch, seq, codec) in enumerate(TRAIN_RUNS):
+            rc, stdout, stderr, wall = done[len(DRYRUN_CELLS) + j]
+            check(rc == 0, f"dryrun one-card {arch}: {stderr[-2000:]}")
+            got = json.loads(stdout.strip().splitlines()[-1])
+            cfg = lm_config(arch)
+            n = cfg.n_params()
+            bound_ops = (8 if cfg.remat != "none" else 6) * n * batch * seq
+            measured = TRAIN_PEAKS.get(arch)
+            rep = {"arch": arch, "batch": batch, "seq": seq, "codec": codec,
+                   "flops": got["flops"], "train_bound_ops": bound_ops,
+                   "flops_over_bound_ops": got["flops"] / bound_ops,
+                   "predicted_peak_bytes": got["peak_bytes"],
+                   "measured_peak_bytes": measured,
+                   "predicted_over_measured": (got["peak_bytes"] / measured
+                                               if measured else None),
+                   "state_and_batch_bytes": got["argument_bytes"],
+                   "count_s": got["run_s"], "process_wall_s": wall}
+            check(got["flops"] > 0 and got["peak_bytes"]
+                  > got["argument_bytes"],
+                  f"dryrun one-card {arch}: {got}")
+            one_card.append(rep)
+            emit({"phase": "dryrun", "one_card": rep})
+    return {"cells": cells, "one_card": one_card,
+            "wall_s": time.perf_counter() - t_phase}
+
+
 def main() -> int:
     import torch
 
@@ -3104,6 +3275,9 @@ def main() -> int:
     sweep_ft = timed("sweep_ft", phase_sweep_ft, torch, kernel_mods)
     lm = timed("lm_serve", phase_lm_serve, torch, kernel_mods, timer)
     train = timed("train", phase_train, torch, kernel_mods)
+    zero_launches(kernel_mods)
+    timed("dryrun", phase_dryrun)
+    dryrun = read_launches(kernel_mods, (), 0, "dryrun")
     emit({"phase": "walls", "seconds": walls})
 
     replaces = {
@@ -3126,7 +3300,8 @@ def main() -> int:
             "replaces": replaces[name],
             "launches": (path[name] + session[name] + arith[name]
                          + serve[name] + tmr[name] + sweep[name]
-                         + sweep_ft[name] + lm[name] + train[name]),
+                         + sweep_ft[name] + lm[name] + train[name]
+                         + dryrun[name]),
             "launches_by_path": {"path": path[name],
                                  "session": session[name],
                                  "arith": arith[name],
@@ -3135,7 +3310,8 @@ def main() -> int:
                                  "sweep": sweep[name],
                                  "sweep_ft": sweep_ft[name],
                                  "lm_serve": lm[name],
-                                 "train": train[name]},
+                                 "train": train[name],
+                                 "dryrun": dryrun[name]},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -23,7 +23,10 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import axis_extent, constraint
+from repro_torch.dist.sharding import (axis_extent, constraint,
+                                       gather_unless_divides,
+                                       grad_in_layout, run_local,
+                                       split_like)
 from repro_torch.models.common import dense_init
 
 NEG_INF = -2.0e38
@@ -173,8 +176,11 @@ def _attend_streaming(q, k, v, q_pos, k_pos, cfg: ModelConfig,
                       q_chunk: int = 1024, kv_chunk: int = 1024):
     """Flash-style nested-chunk attention on flat heads: for each query
     chunk, a running max, denominator and float32 accumulator over every
-    key chunk, as the reference's nested ``lax.scan`` computes them."""
+    key chunk, as the reference's nested ``lax.scan`` computes them.  The
+    keys may be longer than the queries (one rank's rows of a split
+    sequence against the whole of it)."""
     b, s, h, hd = q.shape
+    sk = k.shape[1]
     mode = _attn_shard_mode(h)
     k = _repeat_kv(k, h)
     v = _repeat_kv(v, h)
@@ -182,7 +188,7 @@ def _attend_streaming(q, k, v, q_pos, k_pos, cfg: ModelConfig,
         k = constraint(k, ("batch", None, "tp", None))
         v = constraint(v, ("batch", None, "tp", None))
     q_chunk = _div_chunk(q_chunk, s)
-    kv_chunk = _div_chunk(kv_chunk, s)
+    kv_chunk = _div_chunk(kv_chunk, sk)
     scale = 1.0 / math.sqrt(hd)
 
     outs = []
@@ -195,7 +201,7 @@ def _attend_streaming(q, k, v, q_pos, k_pos, cfg: ModelConfig,
                         device=q.device)
         acc = torch.zeros((b, h, q_chunk, hd), dtype=torch.float32,
                           device=q.device)
-        for k0 in range(0, s, kv_chunk):
+        for k0 in range(0, sk, kv_chunk):
             kc = k[:, k0:k0 + kv_chunk]
             vc = v[:, k0:k0 + kv_chunk]
             kpc = k_pos[:, k0:k0 + kv_chunk]
@@ -254,9 +260,11 @@ def _qkv(params, x: torch.Tensor, cfg: ModelConfig, positions):
     """Projected (q, k, v), RoPE applied at ``positions``."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ params["wq"]).reshape(b, s, h, hd)
-    k = (x @ params["wk"]).reshape(b, s, kvh, hd)
-    v = (x @ params["wv"]).reshape(b, s, kvh, hd)
+    q = gather_unless_divides(x @ params["wq"], -1, h).reshape(b, s, h, hd)
+    k = gather_unless_divides(x @ params["wk"], -1, kvh).reshape(b, s, kvh,
+                                                                 hd)
+    v = gather_unless_divides(x @ params["wv"], -1, kvh).reshape(b, s, kvh,
+                                                                 hd)
     rot = _rot_dim(cfg)
     if rot:
         cos, sin = rope_tables(positions, rot, cfg.rope_theta)
@@ -273,6 +281,26 @@ def attention_forward(params, x: torch.Tensor, positions: torch.Tensor,
     return _attend(params, q, k, v, positions, cfg, streaming_threshold)
 
 
+def _attend_sharded(core, q, k, v, positions, cfg: ModelConfig):
+    """``core(q, k, v, q_pos, k_pos, cfg)``; on a DTensor ``q``, over
+    each rank's own rows and heads (:func:`run_local`): the keys and
+    values repeated to every query head and laid out as ``q``'s batch
+    and heads with their whole sequence, the positions as ``q``'s batch
+    and sequence.  The attention itself moves nothing between ranks, as
+    under the reference's heads / sequence-parallel rules; DTensor has
+    no strategy that keeps a split head dim through its products."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(q, DTensor):
+        return core(q, k, v, positions, positions, cfg)
+    h = q.shape[2]
+    k = split_like(_repeat_kv(k, h), q, (0, None, 2))
+    v = split_like(_repeat_kv(v, h), q, (0, None, 2))
+    return run_local(lambda *a: core(*a, cfg), q, q, k, v,
+                     split_like(positions, q, (0, 1)),
+                     split_like(positions, q, (0,)))
+
+
 def _attend(params, q, k, v, positions, cfg: ModelConfig,
             streaming_threshold: int = 8192) -> torch.Tensor:
     b, s, h, hd = q.shape
@@ -280,11 +308,27 @@ def _attend(params, q, k, v, positions, cfg: ModelConfig,
         q = constraint(q, ("batch", None, "tp", None))
     else:
         q = constraint(q, ("batch", "sp", None, None))
-    if s > streaming_threshold and not FORCE_DENSE:
-        out = _attend_streaming(q, k, v, positions, positions, cfg)
-    else:
-        out = _attend_dense(q, k, v, positions, positions, cfg)
-    return out.reshape(b, s, h * hd) @ params["wo"]
+    core = (_attend_streaming if s > streaming_threshold and not FORCE_DENSE
+            else _attend_dense)
+    out = _attend_sharded(core, q, k, v, positions, cfg)
+    return grad_in_layout(out.reshape(b, s, h * hd)) @ params["wo"]
+
+
+def _write_slot(buf: torch.Tensor, slot: torch.Tensor,
+                new: torch.Tensor) -> torch.Tensor:
+    """A copy of ``buf`` (B, S, ...) with row ``b``'s slot ``slot[b]``
+    set to ``new[b]``.  A DTensor has no ``index_put`` along a split
+    batch dim: it selects by a one-hot of the slot, the same values."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(buf, DTensor):
+        hit = (torch.arange(buf.shape[1], device=slot.device)[None, :]
+               == slot[:, None])
+        hit = hit.reshape(hit.shape + (1,) * (buf.dim() - 2))
+        return torch.where(hit, new[:, None], buf)
+    out = buf.clone()
+    out[torch.arange(buf.shape[0], device=buf.device), slot] = new
+    return out
 
 
 def attention_decode(params, x: torch.Tensor, cache: KVCache,
@@ -304,11 +348,8 @@ def attention_decode(params, x: torch.Tensor, cache: KVCache,
         slot = pos64 % buf
     else:
         slot = torch.clamp(pos64, max=buf - 1)
-    bidx = torch.arange(b, device=x.device)
-    k_buf = cache.k.clone()
-    v_buf = cache.v.clone()
-    k_buf[bidx, slot] = k[:, 0]
-    v_buf[bidx, slot] = v[:, 0]
+    k_buf = _write_slot(cache.k, slot, k[:, 0])
+    v_buf = _write_slot(cache.v, slot, v[:, 0])
     # absolute positions held in each cache slot (rolling for SWA)
     slots = torch.arange(buf, device=x.device)[None, :]
     cur = pos64[:, None]
@@ -337,6 +378,21 @@ def attention_decode(params, x: torch.Tensor, cache: KVCache,
     return out @ params["wo"], new_cache
 
 
+def _fill_cache(buf: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """``buf`` (zeros) with its first slots set to ``new``.  A DTensor
+    ``new`` cannot be written into a plain buffer: the cache is ``new``
+    followed by the zero slots instead, the same values."""
+    from torch.distributed.tensor import DTensor
+
+    take = new.shape[1]
+    if isinstance(new, DTensor):
+        if take == buf.shape[1]:
+            return new
+        return torch.cat([new, buf[:, take:].to(new.dtype)], dim=1)
+    buf[:, :take] = new
+    return buf
+
+
 def prefill_cache(params, x: torch.Tensor, positions: torch.Tensor,
                   cfg: ModelConfig, max_seq: int):
     """Full-sequence prefill that also materializes the cache."""
@@ -350,9 +406,8 @@ def prefill_cache(params, x: torch.Tensor, positions: torch.Tensor,
     # trailing window is written then rolled by (s - take) % buf (zero for
     # the full-cache case where slot == position).
     shift = (s - take) % buf
-    cache.k[:, :take] = k[:, s - take:]
-    cache.v[:, :take] = v[:, s - take:]
-    k_buf, v_buf = cache.k, cache.v
+    k_buf = _fill_cache(cache.k, k[:, s - take:])
+    v_buf = _fill_cache(cache.v, v[:, s - take:])
     if shift:
         k_buf = torch.roll(k_buf, shift, dims=1)
         v_buf = torch.roll(v_buf, shift, dims=1)

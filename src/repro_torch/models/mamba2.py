@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import run_local, split_like
 from repro_torch.models.common import dense_init, silu
 
 
@@ -107,7 +108,6 @@ def mamba2_forward(params, x: torch.Tensor, cfg: ModelConfig,
     _check_chunks(s, cfg)
     d_inner, nh, p, n = _dims(cfg)
     ch = cfg.ssm_chunk
-    nchunks = s // ch
 
     proj = x @ params["w_in"]
     z, xin, b, c, dt_raw = _split_proj(proj, cfg)
@@ -121,17 +121,44 @@ def mamba2_forward(params, x: torch.Tensor, cfg: ModelConfig,
     loga = dt * a                                          # (B,S,H)
     xh = xin.reshape(bsz, s, nh, p)
 
-    # chunked SSD
+    h = (torch.zeros((bsz, nh, p, n), dtype=torch.float32, device=x.device)
+         if state is None else state.h)
+    y, h = _ssd_sharded(loga, dt, xh, b, c, h, ch)
+    y = y + params["d_skip"][None, None, :, None] * xh.float()
+    y = y.to(x.dtype).reshape(bsz, s, d_inner)
+    y = y * silu(z)
+    out = y @ params["w_out"]
+    return out, MambaState(h=h, conv=new_tail)
+
+
+def _ssd_sharded(loga, dt, xh, b, c, h, ch: int):
+    """:func:`_ssd`; on a DTensor ``xh``, over each rank's own rows and
+    heads (``run_local``), the sequence whole: the chunk recurrence
+    moves nothing between ranks."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(xh, DTensor):
+        return _ssd(loga, dt, xh, b, c, h, ch)
+    heads = (0, None, 2)
+    ins = (split_like(loga, xh, heads), split_like(dt, xh, heads),
+           split_like(xh, xh, heads), split_like(b, xh, (0,)),
+           split_like(c, xh, (0,)), split_like(h, xh, (0, 2)))
+    return run_local(lambda *a: _ssd(*a, ch), (ins[2], ins[5]), *ins)
+
+
+def _ssd(loga, dt, xh, b, c, h, ch: int):
+    """The chunked SSD over ``(B, S, H, ...)`` inputs from state ``h``:
+    ``(y (B, S, H, P) float32, final h)``."""
+    bsz, s, nh, p = xh.shape
+    n = b.shape[-1]
+    nchunks = s // ch
     loga_c = loga.reshape(bsz, nchunks, ch, nh)
     dt_c = dt.reshape(bsz, nchunks, ch, nh)
     x_c = xh.reshape(bsz, nchunks, ch, nh, p)
     b_c = b.reshape(bsz, nchunks, ch, n).float()
     c_c = c.reshape(bsz, nchunks, ch, n).float()
-
-    h = (torch.zeros((bsz, nh, p, n), dtype=torch.float32, device=x.device)
-         if state is None else state.h)
     mask = torch.tril(torch.ones((ch, ch), dtype=torch.bool,
-                                 device=x.device))
+                                 device=xh.device))
     y_chunks = []
     for i in range(nchunks):
         la, dtk, xk = loga_c[:, i], dt_c[:, i], x_c[:, i]
@@ -149,7 +176,7 @@ def mamba2_forward(params, x: torch.Tensor, cfg: ModelConfig,
         # values; finite gradients.
         L = torch.exp(torch.where(mask[None, :, :, None], rel,
                                   torch.tensor(float("-inf"),
-                                               device=x.device)))
+                                               device=xh.device)))
         g = torch.einsum("btn,bsn->bts", ck, bk)           # (B,t,s)
         dx = xk.float() * dtk[..., None]                   # (B,s,H,P)
         y_intra = torch.einsum("bts,btsh,bshp->bthp", g, L, dx)
@@ -159,12 +186,7 @@ def mamba2_forward(params, x: torch.Tensor, cfg: ModelConfig,
         h = torch.exp(tot)[..., None, None] * h + torch.einsum(
             "bshp,bsn,bsh->bhpn", dx, bk, w)
         y_chunks.append(y_inter + y_intra)
-    y = torch.stack(y_chunks, dim=1).reshape(bsz, s, nh, p)
-    y = y + params["d_skip"][None, None, :, None] * xh.float()
-    y = y.to(x.dtype).reshape(bsz, s, d_inner)
-    y = y * silu(z)
-    out = y @ params["w_out"]
-    return out, MambaState(h=h, conv=new_tail)
+    return torch.stack(y_chunks, dim=1).reshape(bsz, s, nh, p), h
 
 
 def mamba2_decode(params, x: torch.Tensor, cfg: ModelConfig,

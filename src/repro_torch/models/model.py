@@ -29,6 +29,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple, Optional, Union
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -122,6 +123,26 @@ def _init_embed(gen: torch.Generator, cfg: ModelConfig):
     return p, {"tok": ("tp", "fsdp")}
 
 
+def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  A DTensor table keeps only its vocabulary
+    split (its ``fsdp`` split gathered, as before any use of a ZeRO-3
+    weight) and goes through ``F.embedding`` (the same rows): DTensor's
+    embedding strategy takes a split vocabulary, where an index's
+    backward fails on some torch releases and an embedding of a table
+    split two ways computes its mask from the wrong rows.  The masked
+    partial rows are summed at once: a mask kept for later checks its
+    reuse with ``torch.equal``, which ``meta`` tensors do not run."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(table, DTensor):
+        return table[tokens]
+    table = table.redistribute(table.device_mesh, [
+        p if p.is_shard(0) else Replicate() for p in table.placements])
+    x = F.embedding(tokens, table)
+    return x.redistribute(x.device_mesh, [Replicate() if p.is_partial()
+                                          else p for p in x.placements])
+
+
 def _embed(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.family == "audio":
         # tokens: (B, S, CB); sum codebook embeddings in the compute
@@ -129,9 +150,9 @@ def _embed(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         x = torch.zeros(tuple(tokens.shape[:2]) + (cfg.d_model,),
                         dtype=cfg.compute_dtype, device=tokens.device)
         for cb in range(cfg.n_codebooks):
-            x = x + p["tok"][cb][tokens[..., cb]]
+            x = x + _lookup(p["tok"][cb], tokens[..., cb])
     else:
-        x = p["tok"][tokens]
+        x = _lookup(p["tok"], tokens)
     if cfg.embed_scale:
         scale = torch.sqrt(torch.tensor(float(cfg.d_model),
                                         dtype=torch.float32))
@@ -153,6 +174,12 @@ def _init_head(gen: torch.Generator, cfg: ModelConfig):
 
 def _head(p, embed_p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.family == "audio":
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(p["w"], DTensor):
+            # DTensor's einsum flattens (codebook, vocab) into one split
+            # dim it cannot unflatten: one product a codebook instead
+            return torch.stack([x @ w for w in p["w"].unbind(0)], dim=2)
         return torch.einsum("bsd,cdv->bscv", x, p["w"])
     if cfg.tie_embeddings:
         return x @ embed_p["tok"].T
@@ -351,23 +378,60 @@ def _zamba_forward(params, x, positions, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
+def _logsumexp(lg: torch.Tensor) -> torch.Tensor:
+    """``logsumexp`` over the last (vocabulary) dim.  DTensor gathers a
+    split dim whole for ``torch.logsumexp``; a split DTensor takes the
+    max and the sum of exponentials instead, each reduced across ranks,
+    so the logits stay split."""
+    from torch.distributed.tensor import DTensor
+
+    last = lg.dim() - 1
+    if not (isinstance(lg, DTensor)
+            and any(p.is_shard(last) for p in lg.placements)):
+        return torch.logsumexp(lg, dim=-1)
+    m = lg.detach().amax(dim=-1, keepdim=True)
+    return (m + torch.log(torch.exp(lg - m).sum(-1, keepdim=True)))[..., 0]
+
+
+def _label_logit(lg: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``lg``'s value at each label along the last (vocabulary) dim.
+
+    A plain tensor takes it with ``torch.gather``.  A DTensor whose
+    vocabulary dim is split has no gather along it: it contracts with a
+    one-hot, as the reference does so that the dim stays split, against
+    a vocabulary index split as the logits are (each rank its own range,
+    no collective).  Both give the same number for finite logits.
+    """
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
+
+    last = lg.dim() - 1
+    if not (isinstance(lg, DTensor)
+            and any(p.is_shard(last) for p in lg.placements)):
+        return torch.gather(lg, -1, labels.long()[..., None])[..., 0]
+    vocab = distribute_tensor(
+        torch.arange(lg.shape[-1], device=lg.to_local().device),
+        lg.device_mesh,
+        [Shard(0) if p.is_shard(last) else Replicate()
+         for p in lg.placements], src_data_rank=None)
+    return (lg * (labels.long()[..., None] == vocab)).sum(-1)
+
+
 def loss_fn(params, batch, cfg: ModelConfig, z_loss: float = 1e-4,
             aux_coef: Optional[float] = None):
     """Mean next-token cross-entropy (masked where ``batch["mask"]`` is
     given) plus ``z_loss`` times the mean squared log-partition, plus the
     MoE aux loss; returns ``(loss, {nll, z_loss, moe_aux})``.
 
-    The label's logit is taken with ``torch.gather``; the reference
-    contracts with a one-hot instead, so that XLA keeps the vocabulary
-    dimension sharded.  Both give the same number for finite logits, and
-    the gather builds no (B, S, V) one-hot.
+    The log-partition and the label's logit are taken by
+    :func:`_logsumexp` and :func:`_label_logit`, which keep a split
+    vocabulary split.
     """
     logits, aux = forward(params, batch, cfg)
     labels = batch["labels"]
     lg = logits.float()
-    lse = torch.logsumexp(lg, dim=-1)
-    ll = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
-    nll = lse - ll
+    lse = _logsumexp(lg)
+    nll = lse - _label_logit(lg, labels)
     if "mask" in batch:
         mask = batch["mask"].float()
         if mask.dim() < nll.dim():

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import run_local, split_like
 from repro_torch.models.common import dense_init, gelu_tanh, silu
 
 
@@ -73,9 +74,20 @@ def init_mlstm_state(cfg: ModelConfig, batch: int,
     )
 
 
+def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``F.logsigmoid``; on a DTensor its formula, ``min(x, 0) -
+    log1p(exp(-|x|))``: DTensor has no strategy for its backward, whose
+    saved buffer is empty on a card and whole on the host."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return F.logsigmoid(x)
+    return torch.clamp(x, max=0.0) - torch.log1p(torch.exp(-x.abs()))
+
+
 def _mlstm_step(state: MLSTMState, q, k, v, i_raw, f_raw):
     """One time step; q/k/v: (B,H,P), gates: (B,H) raw logits."""
-    logf = F.logsigmoid(f_raw.float())
+    logf = _log_sigmoid(f_raw.float())
     logi = i_raw.float()
     m_new = torch.maximum(logf + state.m, logi)
     f_ = torch.exp(logf + state.m - m_new)
@@ -137,7 +149,7 @@ def mlstm_forward(params, x: torch.Tensor, cfg: ModelConfig,
     kf = (k.float() / math.sqrt(p)).reshape(b, nc, c, nh, p)
     vf = v.float().reshape(b, nc, c, nh, p)
     logi = i_raw.float().reshape(b, nc, c, nh)
-    logf = F.logsigmoid(f_raw.float()).reshape(b, nc, c, nh)
+    logf = _log_sigmoid(f_raw.float()).reshape(b, nc, c, nh)
     tril = torch.tril(torch.ones((c, c), dtype=torch.bool, device=x.device))
     neg_inf = torch.tensor(float("-inf"), device=x.device)
 
@@ -243,7 +255,7 @@ def _slstm_step(params, state: SLSTMState, xt: torch.Tensor) -> SLSTMState:
     pre = (xt @ params["w_x"]).float() \
         + (state.h.to(xt.dtype) @ params["r_h"]).float()
     i_raw, f_raw, z_raw, o_raw = torch.chunk(pre, 4, dim=-1)
-    logf = F.logsigmoid(f_raw)
+    logf = _log_sigmoid(f_raw)
     m_new = torch.maximum(logf + state.m, i_raw)
     i_ = torch.exp(i_raw - m_new)
     f_ = torch.exp(logf + state.m - m_new)
@@ -266,12 +278,39 @@ def slstm_forward(params, x: torch.Tensor, cfg: ModelConfig,
     pass's memory; the recurrence is the same)."""
     b, s, d = x.shape
     st = state if state is not None else init_slstm_state(cfg, b, x.device)
-    hs = []
-    for t in range(s):
-        st = _slstm_step(params, st, x[:, t])
-        hs.append(st.h)
-    y = torch.stack(hs, dim=1).to(x.dtype)
+    y, st = _slstm_scan_sharded(params["w_x"], params["r_h"], x, st)
     return _slstm_ff(params, y), st
+
+
+def _slstm_scan(w_x, r_h, x: torch.Tensor, st: SLSTMState):
+    """The sLSTM's time steps over ``x`` from state ``st``: the hidden
+    states ``(B, S, D)`` in ``x``'s dtype, and the last state."""
+    hs = []
+    for t in range(x.shape[1]):
+        st = _slstm_step({"w_x": w_x, "r_h": r_h}, st, x[:, t])
+        hs.append(st.h)
+    return torch.stack(hs, dim=1).to(x.dtype), st
+
+
+def _slstm_scan_sharded(w_x, r_h, x: torch.Tensor, st: SLSTMState):
+    """:func:`_slstm_scan`; on a DTensor ``x``, over each rank's own rows
+    (``run_local``), the two weights whole: the recurrence moves nothing
+    between ranks once they are gathered."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return _slstm_scan(w_x, r_h, x, st)
+    x = split_like(x, x, (0,))
+    st = SLSTMState(*(split_like(t, x, (0,)) for t in st))
+    y, *last = run_local(
+        lambda w, r, xs, *s: _flat_scan(w, r, xs, SLSTMState(*s)),
+        (x,) * 5, split_like(w_x, x, ()), split_like(r_h, x, ()), x, *st)
+    return y, SLSTMState(*last)
+
+
+def _flat_scan(w_x, r_h, x, st: SLSTMState):
+    y, last = _slstm_scan(w_x, r_h, x, st)
+    return (y, *last)
 
 
 def slstm_decode(params, x: torch.Tensor, cfg: ModelConfig,

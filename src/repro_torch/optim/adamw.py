@@ -36,7 +36,7 @@ def _map(fn, tree):
 
 
 def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
-    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    return torch.zeros_like(p, dtype=torch.float32)
 
 
 def init_state(params) -> AdamWState:

@@ -31,8 +31,7 @@ class ErrorFeedback(NamedTuple):
 def init_feedback(params) -> ErrorFeedback:
     leaves, structure = tree_util.flatten(params)
     return ErrorFeedback(tree_util.unflatten(structure, [
-        torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-        for p in leaves]))
+        torch.zeros_like(p, dtype=torch.float32) for p in leaves]))
 
 
 def _quant_int8(g: torch.Tensor) -> torch.Tensor:

@@ -10,6 +10,7 @@ new one, as the reference's does.
 
 from __future__ import annotations
 
+import math
 from typing import Any, NamedTuple, Union
 
 import numpy as np
@@ -68,6 +69,33 @@ def loss_and_grads(params, batch: dict, cfg: ModelConfig, z_loss: float):
     return loss.detach(), metrics, tree_util.unflatten(structure, grads)
 
 
+def _microbatches(v: torch.Tensor, mb: int) -> torch.Tensor:
+    """``v`` as ``mb`` microbatches along a new leading dim: consecutive
+    rows, as the reference splits them.  A DTensor split along its rows
+    has no view that cuts them so (a microbatch would lie on a few
+    ranks): its split moves to another dim first (an all-to-all, or a
+    gather where no dim divides), the rows are cut, and the split moves
+    onto each microbatch's rows (another all-to-all), so every
+    microbatch is split over the ranks that split the batch."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    rows = ([i for i, p in enumerate(v.placements) if p.is_shard(0)]
+            if isinstance(v, DTensor) else [])
+    if not rows:
+        return v.reshape(mb, v.shape[0] // mb, *v.shape[1:])
+    mesh = v.device_mesh
+    parts = math.prod(mesh.size(i) for i in rows)
+    split = {p.dim for p in v.placements if p.is_shard()}
+    free = [d for d in range(1, v.dim())
+            if d not in split and v.shape[d] % parts == 0]
+    aside = Shard(free[0]) if free else Replicate()
+    v = v.redistribute(mesh, [aside if i in rows else p
+                              for i, p in enumerate(v.placements)])
+    v = v.reshape(mb, v.shape[0] // mb, *v.shape[1:])
+    return v.redistribute(mesh, [Shard(1) if i in rows else p
+                                 for i, p in enumerate(v.placements)])
+
+
 def make_train_step(cfg: ModelConfig, tc: TrainConfig):
     """Returns fn(state, batch) -> (state, metrics)."""
 
@@ -75,11 +103,10 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
         batch = batch_to(batch, _device_of(state.params))
         if tc.microbatches > 1:
             mb = tc.microbatches
-            batches = {k: v.reshape(mb, v.shape[0] // mb, *v.shape[1:])
-                       for k, v in batch.items()}
+            batches = {k: _microbatches(v, mb) for k, v in batch.items()}
             leaves, structure = tree_util.flatten(state.params)
-            gsum = [torch.zeros(p.shape, dtype=torch.float32,
-                                device=p.device) for p in leaves]
+            gsum = [torch.zeros_like(p, dtype=torch.float32)
+                    for p in leaves]
             lsum = torch.zeros((), dtype=torch.float32,
                                device=_device_of(state.params))
             for i in range(mb):
