@@ -138,12 +138,20 @@ Phases, one JSON line each:
    a one-device mesh applied to the ``train`` phase's two runs, its
    FLOPs beside ``train_bound``'s 8 N a token and its peak beside the
    peak the card measured in phase 11;
-13. the kernels line, then ``{"ok": true, ...}`` as the last line.
+13. paper — ``python -m repro_torch.paper.run`` in process on the card
+   (a fresh sweep root, no dry-run file): Figs 3-12 and 15-18, Table 1
+   and the five kernel-bench rows, each figure timed; the row names and
+   every deterministic value (the analytic figures, Fig 16's speedups,
+   Fig 18's dispatches and in-situ DRAM energy) held to the frozen
+   :data:`PAPER_ROWS`, which ``tests/test_torch_paper.py`` holds to the
+   reference's output; then the five examples' ``main`` on the card
+   (``train_tiny_lm`` cut to 12 steps of its small config);
+14. the kernels line, then ``{"ok": true, ...}`` as the last line.
 
-Every kernel's launch count is zeroed just before phases 3-12 and read
+Every kernel's launch count is zeroed just before phases 3-13 and read
 just after each: the launches must add up to the backend's dispatches
 (the store's: one MAJX launch a leaf), and every kernel of the phase's
-path must have launched; ``dryrun`` launches none.
+path must have launched; ``dryrun`` launches none, ``paper`` all five.
 Any failed check raises, so the script exits non-zero and prints no
 result.  It needs ``torch.cuda.is_available()`` and the repository's
 ``src/`` and ``tests/golden/`` beside it.
@@ -3082,12 +3090,14 @@ def phase_train(torch, kernel_mods) -> dict:
 
 # ------------------------------------------------------------ dryrun
 #: The fake-world cells: (arch, shape, multi-pod).  Four families at
-#: train_4k, a decode cell, a 500k-token cell and one on the multi-pod
-#: mesh; each runs in a process of its own, all at once.  zamba2-1.2b's
-#: and xlstm-125m's train_4k cells take 2 and 7 minutes to count (their
-#: recurrences, step by step): they run in ``--all``, not here.
+#: train_4k, two decode cells (one with its experts split over the tp
+#: axis), a 500k-token cell and one on the multi-pod mesh; each runs in
+#: a process of its own, all at once.  zamba2-1.2b's and xlstm-125m's
+#: train_4k cells take 2 and 7 minutes to count (their recurrences,
+#: step by step): they run in ``--all``, not here.
 DRYRUN_CELLS = (("chatglm3-6b", "train_4k", False),
                 ("mixtral-8x22b", "train_4k", False),
+                ("qwen3-moe-235b-a22b", "decode_32k", False),
                 ("musicgen-medium", "train_4k", False),
                 ("phi-3-vision-4.2b", "train_4k", False),
                 ("chatglm3-6b", "decode_32k", False),
@@ -3236,6 +3246,363 @@ def phase_dryrun() -> dict:
             "wall_s": time.perf_counter() - t_phase}
 
 
+# ---------------------------------------------------------------- paper
+
+#: Steps of ``train_tiny_lm`` in the paper phase (its small config), and
+#: the step its injected failure hits.
+PAPER_TRAIN_ARGV = ("--small", "--steps", "12", "--fail-at", "7")
+
+
+def paper_frozen(name: str, derived: str):
+    """The part of a figure row the script holds frozen: the whole
+    ``derived`` of an analytic figure; Fig 18's dispatches and in-situ
+    DRAM energy (its launch energies are the H100 CostModel's prices);
+    nothing of a kernel bench row (``None``)."""
+    if name.startswith("kernel_"):
+        return None
+    if not name.startswith("fig18_") or name.endswith("_pud_dram"):
+        return derived
+    if name.endswith(("_per_op", "_fused", "_megakernel")):
+        return next(f for f in derived.split(";")
+                    if f.startswith("dispatches="))
+    return None
+
+
+#: The rows ``python -m repro_torch.paper.run`` prints without dry-run
+#: files, in order, each with its deterministic part
+#: (:func:`paper_frozen`; ``None`` where nothing is frozen), as the
+#: reference prints it: ``tests/test_torch_paper.py`` holds them so.
+PAPER_ROWS = {
+    'fig3_simra_n2_t1_1.5_t2_1.5': 'success=0.9274',
+    'fig3_simra_n4_t1_1.5_t2_1.5': 'success=0.8550',
+    'fig3_simra_n8_t1_1.5_t2_1.5': 'success=0.7825',
+    'fig3_simra_n16_t1_1.5_t2_1.5': 'success=0.7101',
+    'fig3_simra_n32_t1_1.5_t2_1.5': 'success=0.6367',
+    'fig3_simra_n2_t1_1.5_t2_3.0': 'success=0.9989',
+    'fig3_simra_n4_t1_1.5_t2_3.0': 'success=0.9989',
+    'fig3_simra_n8_t1_1.5_t2_3.0': 'success=0.9989',
+    'fig3_simra_n16_t1_1.5_t2_3.0': 'success=0.9989',
+    'fig3_simra_n32_t1_1.5_t2_3.0': 'success=0.9975',
+    'fig3_simra_n2_t1_3.0_t2_1.5': 'success=0.9637',
+    'fig3_simra_n4_t1_3.0_t2_1.5': 'success=0.9274',
+    'fig3_simra_n8_t1_3.0_t2_1.5': 'success=0.8912',
+    'fig3_simra_n16_t1_3.0_t2_1.5': 'success=0.8550',
+    'fig3_simra_n32_t1_3.0_t2_1.5': 'success=0.8176',
+    'fig3_simra_n2_t1_3.0_t2_3.0': 'success=0.9999',
+    'fig3_simra_n4_t1_3.0_t2_3.0': 'success=0.9999',
+    'fig3_simra_n8_t1_3.0_t2_3.0': 'success=0.9999',
+    'fig3_simra_n16_t1_3.0_t2_3.0': 'success=0.9999',
+    'fig3_simra_n32_t1_3.0_t2_3.0': 'success=0.9985',
+    'fig4a_simra32_T50': 'success=0.9985',
+    'fig4a_simra32_T60': 'success=0.9983',
+    'fig4a_simra32_T70': 'success=0.9982',
+    'fig4a_simra32_T80': 'success=0.9980',
+    'fig4a_simra32_T90': 'success=0.9978',
+    'fig4b_simra32_V2.5': 'success=0.9985',
+    'fig4b_simra32_V2.4': 'success=0.9975',
+    'fig4b_simra32_V2.3': 'success=0.9965',
+    'fig4b_simra32_V2.2': 'success=0.9954',
+    'fig4b_simra32_V2.1': 'success=0.9944', 'fig5_power_RD': 'watts=1.300',
+    'fig5_power_WR': 'watts=1.250', 'fig5_power_ACT_PRE': 'watts=0.900',
+    'fig5_power_REF': 'watts=1.800', 'fig5_power_SIMRA_2': 'watts=0.945',
+    'fig5_power_SIMRA_4': 'watts=1.063', 'fig5_power_SIMRA_8': 'watts=1.182',
+    'fig5_power_SIMRA_16': 'watts=1.300', 'fig5_power_SIMRA_32': 'watts=1.419',
+    'fig5_simra32_vs_ref': 'delta=-0.2119',
+    'fig6_maj3_n4_t1_1.5_t2_3.0': 'success=0.7568',
+    'fig6_maj3_n8_t1_1.5_t2_3.0': 'success=0.8345',
+    'fig6_maj3_n16_t1_1.5_t2_3.0': 'success=0.9123',
+    'fig6_maj3_n32_t1_1.5_t2_3.0': 'success=0.9900',
+    'fig6_maj3_n4_t1_3.0_t2_3.0': 'success=0.5202',
+    'fig6_maj3_n8_t1_3.0_t2_3.0': 'success=0.5736',
+    'fig6_maj3_n16_t1_3.0_t2_3.0': 'success=0.6270',
+    'fig6_maj3_n32_t1_3.0_t2_3.0': 'success=0.6804',
+    'fig6_maj3_n4_t1_4.5_t2_3.0': 'success=0.3962',
+    'fig6_maj3_n8_t1_4.5_t2_3.0': 'success=0.4369',
+    'fig6_maj3_n16_t1_4.5_t2_3.0': 'success=0.4776',
+    'fig6_maj3_n32_t1_4.5_t2_3.0': 'success=0.5183',
+    'fig6_maj3_n4_t1_1.5_t2_1.5': 'success=0.2270',
+    'fig6_maj3_n8_t1_1.5_t2_1.5': 'success=0.2504',
+    'fig6_maj3_n16_t1_1.5_t2_1.5': 'success=0.2737',
+    'fig6_maj3_n32_t1_1.5_t2_1.5': 'success=0.2970',
+    'fig6_cliff_t1_at_0.5': 'bracket=4.5..6ns',
+    'fig6_cliff_t1_at_0.9': 'bracket=1.5..3ns',
+    'fig6_cliff_economy': 'probed=7/20', 'fig7_maj3_random': 'success=0.9900',
+    'fig7_maj3_0x00_0xFF': 'success=0.9968',
+    'fig7_maj3_0xAA_0x55': 'success=0.9958',
+    'fig7_maj3_0xCC_0x33': 'success=0.9948',
+    'fig7_maj3_0x66_0x99': 'success=0.9953',
+    'fig7_maj5_random': 'success=0.7964',
+    'fig7_maj5_0x00_0xFF': 'success=0.9244',
+    'fig7_maj5_0xAA_0x55': 'success=0.9235',
+    'fig7_maj5_0xCC_0x33': 'success=0.9226',
+    'fig7_maj5_0x66_0x99': 'success=0.9230',
+    'fig7_maj7_random': 'success=0.3387',
+    'fig7_maj7_0x00_0xFF': 'success=0.5022',
+    'fig7_maj7_0xAA_0x55': 'success=0.5017',
+    'fig7_maj7_0xCC_0x33': 'success=0.5012',
+    'fig7_maj7_0x66_0x99': 'success=0.5015',
+    'fig7_maj9_random': 'success=0.0591',
+    'fig7_maj9_0x00_0xFF': 'success=0.0708',
+    'fig7_maj9_0xAA_0x55': 'success=0.0707',
+    'fig7_maj9_0xCC_0x33': 'success=0.0706',
+    'fig7_maj9_0x66_0x99': 'success=0.0707',
+    'fig8_maj3_n4_T50': 'success=0.7568',
+    'fig8_maj3_n32_T50': 'success=0.9900',
+    'fig8_maj3_n4_T60': 'success=0.7856',
+    'fig8_maj3_n32_T60': 'success=0.9941',
+    'fig8_maj3_n4_T70': 'success=0.8143',
+    'fig8_maj3_n32_T70': 'success=0.9982',
+    'fig8_maj3_n4_T80': 'success=0.8431',
+    'fig8_maj3_n32_T80': 'success=1.0000',
+    'fig8_maj3_n4_T90': 'success=0.8719',
+    'fig8_maj3_n32_T90': 'success=1.0000',
+    'fig8_maj5_n8_T50': 'success=0.5096',
+    'fig8_maj5_n32_T50': 'success=0.7964',
+    'fig8_maj5_n8_T60': 'success=0.5290',
+    'fig8_maj5_n32_T60': 'success=0.8033',
+    'fig8_maj5_n8_T70': 'success=0.5484',
+    'fig8_maj5_n32_T70': 'success=0.8102',
+    'fig8_maj5_n8_T80': 'success=0.5677',
+    'fig8_maj5_n32_T80': 'success=0.8171',
+    'fig8_maj5_n8_T90': 'success=0.5871',
+    'fig8_maj5_n32_T90': 'success=0.8239',
+    'fig8_maj7_n8_T50': 'success=0.2506',
+    'fig8_maj7_n32_T50': 'success=0.3387',
+    'fig8_maj7_n8_T60': 'success=0.2601',
+    'fig8_maj7_n32_T60': 'success=0.3416',
+    'fig8_maj7_n8_T70': 'success=0.2697',
+    'fig8_maj7_n32_T70': 'success=0.3446',
+    'fig8_maj7_n8_T80': 'success=0.2792',
+    'fig8_maj7_n32_T80': 'success=0.3475',
+    'fig8_maj7_n8_T90': 'success=0.2887',
+    'fig8_maj7_n32_T90': 'success=0.3504',
+    'fig8_maj9_n16_T50': 'success=0.0523',
+    'fig8_maj9_n32_T50': 'success=0.0591',
+    'fig8_maj9_n16_T60': 'success=0.0542',
+    'fig8_maj9_n32_T60': 'success=0.0602',
+    'fig8_maj9_n16_T70': 'success=0.0562',
+    'fig8_maj9_n32_T70': 'success=0.0612',
+    'fig8_maj9_n16_T80': 'success=0.0582',
+    'fig8_maj9_n32_T80': 'success=0.0623',
+    'fig8_maj9_n16_T90': 'success=0.0602',
+    'fig8_maj9_n32_T90': 'success=0.0634', 'fig9_maj3_V2.5': 'success=0.9900',
+    'fig9_maj3_V2.4': 'success=0.9873', 'fig9_maj3_V2.3': 'success=0.9846',
+    'fig9_maj3_V2.2': 'success=0.9818', 'fig9_maj3_V2.1': 'success=0.9791',
+    'fig9_maj5_V2.5': 'success=0.7964', 'fig9_maj5_V2.4': 'success=0.7942',
+    'fig9_maj5_V2.3': 'success=0.7920', 'fig9_maj5_V2.2': 'success=0.7898',
+    'fig9_maj5_V2.1': 'success=0.7876', 'fig9_maj7_V2.5': 'success=0.3387',
+    'fig9_maj7_V2.4': 'success=0.3378', 'fig9_maj7_V2.3': 'success=0.3368',
+    'fig9_maj7_V2.2': 'success=0.3359', 'fig9_maj7_V2.1': 'success=0.3350',
+    'fig9_maj9_V2.5': 'success=0.0591', 'fig9_maj9_V2.4': 'success=0.0589',
+    'fig9_maj9_V2.3': 'success=0.0588', 'fig9_maj9_V2.2': 'success=0.0586',
+    'fig9_maj9_V2.1': 'success=0.0584', 'fig10_mrc1_t1_1.5': 'success=0.42677',
+    'fig10_mrc3_t1_1.5': 'success=0.42674',
+    'fig10_mrc7_t1_1.5': 'success=0.42678',
+    'fig10_mrc15_t1_1.5': 'success=0.42678',
+    'fig10_mrc31_t1_1.5': 'success=0.42671',
+    'fig10_mrc1_t1_3.0': 'success=0.84997',
+    'fig10_mrc3_t1_3.0': 'success=0.84991',
+    'fig10_mrc7_t1_3.0': 'success=0.84998',
+    'fig10_mrc15_t1_3.0': 'success=0.84999',
+    'fig10_mrc31_t1_3.0': 'success=0.84985',
+    'fig10_mrc1_t1_6.0': 'success=0.92996',
+    'fig10_mrc3_t1_6.0': 'success=0.92990',
+    'fig10_mrc7_t1_6.0': 'success=0.92998',
+    'fig10_mrc15_t1_6.0': 'success=0.92999',
+    'fig10_mrc31_t1_6.0': 'success=0.92983',
+    'fig10_mrc1_t1_9.0': 'success=0.96996',
+    'fig10_mrc3_t1_9.0': 'success=0.96989',
+    'fig10_mrc7_t1_9.0': 'success=0.96998',
+    'fig10_mrc15_t1_9.0': 'success=0.96999',
+    'fig10_mrc31_t1_9.0': 'success=0.96983',
+    'fig10_mrc1_t1_36.0': 'success=0.99996',
+    'fig10_mrc3_t1_36.0': 'success=0.99989',
+    'fig10_mrc7_t1_36.0': 'success=0.99998',
+    'fig10_mrc15_t1_36.0': 'success=0.99999',
+    'fig10_mrc31_t1_36.0': 'success=0.99982',
+    'fig11_mrc1_0x00': 'success=0.99996', 'fig11_mrc3_0x00': 'success=0.99989',
+    'fig11_mrc7_0x00': 'success=0.99998',
+    'fig11_mrc15_0x00': 'success=0.99999',
+    'fig11_mrc31_0x00': 'success=0.99982',
+    'fig11_mrc1_0xFF': 'success=0.99886', 'fig11_mrc3_0xFF': 'success=0.99879',
+    'fig11_mrc7_0xFF': 'success=0.99888',
+    'fig11_mrc15_0xFF': 'success=0.99889',
+    'fig11_mrc31_0xFF': 'success=0.99192',
+    'fig11_mrc1_random': 'success=0.99996',
+    'fig11_mrc3_random': 'success=0.99989',
+    'fig11_mrc7_random': 'success=0.99998',
+    'fig11_mrc15_random': 'success=0.99999',
+    'fig11_mrc31_random': 'success=0.99982',
+    'fig12a_mrc31_T50': 'success=0.99982',
+    'fig12a_mrc31_T60': 'success=0.99972',
+    'fig12a_mrc31_T70': 'success=0.99962',
+    'fig12a_mrc31_T80': 'success=0.99952',
+    'fig12a_mrc31_T90': 'success=0.99942',
+    'fig12b_mrc31_V2.5': 'success=0.99982',
+    'fig12b_mrc31_V2.4': 'success=0.99652',
+    'fig12b_mrc31_V2.3': 'success=0.99322',
+    'fig12b_mrc31_V2.2': 'success=0.98992',
+    'fig12b_mrc31_V2.1': 'success=0.98662',
+    'fig15_n1_pv0': 'dev=0.0736;success=1.0000',
+    'fig15_n1_pv10': 'dev=0.0736;success=1.0000',
+    'fig15_n1_pv20': 'dev=0.0736;success=1.0000',
+    'fig15_n1_pv30': 'dev=0.0732;success=1.0000',
+    'fig15_n1_pv40': 'dev=0.0727;success=0.9538',
+    'fig15_n4_pv0': 'dev=0.0511;success=1.0000',
+    'fig15_n4_pv10': 'dev=0.0510;success=0.6208',
+    'fig15_n4_pv20': 'dev=0.0509;success=0.5680',
+    'fig15_n4_pv30': 'dev=0.0508;success=0.5378',
+    'fig15_n4_pv40': 'dev=0.0506;success=0.5265',
+    'fig15_n8_pv0': 'dev=0.0725;success=1.0000',
+    'fig15_n8_pv10': 'dev=0.0724;success=1.0000',
+    'fig15_n8_pv20': 'dev=0.0722;success=0.9920',
+    'fig15_n8_pv30': 'dev=0.0723;success=0.9383',
+    'fig15_n8_pv40': 'dev=0.0723;success=0.8700',
+    'fig15_n16_pv0': 'dev=0.1147;success=1.0000',
+    'fig15_n16_pv10': 'dev=0.1148;success=1.0000',
+    'fig15_n16_pv20': 'dev=0.1147;success=1.0000',
+    'fig15_n16_pv30': 'dev=0.1149;success=1.0000',
+    'fig15_n16_pv40': 'dev=0.1148;success=0.9998',
+    'fig15_n32_pv0': 'dev=0.1323;success=1.0000',
+    'fig15_n32_pv10': 'dev=0.1323;success=1.0000',
+    'fig15_n32_pv20': 'dev=0.1324;success=1.0000',
+    'fig15_n32_pv30': 'dev=0.1320;success=1.0000',
+    'fig15_n32_pv40': 'dev=0.1326;success=1.0000',
+    'fig15_dev_gain_32_over_4': 'gain=+1.5905',
+    'fig16_M_and_maj5': 'speedup=1.387', 'fig16_M_and_maj7': 'speedup=1.387',
+    'fig16_M_or_maj5': 'speedup=1.387', 'fig16_M_or_maj7': 'speedup=1.387',
+    'fig16_M_xor_maj5': 'speedup=1.249', 'fig16_M_xor_maj7': 'speedup=1.249',
+    'fig16_M_add_maj5': 'speedup=2.612', 'fig16_M_add_maj7': 'speedup=3.547',
+    'fig16_M_sub_maj5': 'speedup=2.753', 'fig16_M_sub_maj7': 'speedup=2.751',
+    'fig16_M_mul_maj5': 'speedup=1.490', 'fig16_M_mul_maj7': 'speedup=2.953',
+    'fig16_M_div_maj5': 'speedup=2.052', 'fig16_M_div_maj7': 'speedup=2.051',
+    'fig16_M_avg_maj5': 'speedup=1.847', 'fig16_M_avg_maj7': 'speedup=2.189',
+    'fig16_H_and_maj5': 'speedup=1.052', 'fig16_H_and_maj7': 'speedup=1.052',
+    'fig16_H_and_maj9': 'speedup=1.052', 'fig16_H_or_maj5': 'speedup=1.052',
+    'fig16_H_or_maj7': 'speedup=1.052', 'fig16_H_or_maj9': 'speedup=1.052',
+    'fig16_H_xor_maj5': 'speedup=1.033', 'fig16_H_xor_maj7': 'speedup=1.033',
+    'fig16_H_xor_maj9': 'speedup=1.033', 'fig16_H_add_maj5': 'speedup=2.142',
+    'fig16_H_add_maj7': 'speedup=2.898', 'fig16_H_add_maj9': 'speedup=0.643',
+    'fig16_H_sub_maj5': 'speedup=2.312', 'fig16_H_sub_maj7': 'speedup=2.306',
+    'fig16_H_sub_maj9': 'speedup=0.744', 'fig16_H_mul_maj5': 'speedup=1.213',
+    'fig16_H_mul_maj7': 'speedup=2.367', 'fig16_H_mul_maj9': 'speedup=0.364',
+    'fig16_H_div_maj5': 'speedup=1.716', 'fig16_H_div_maj7': 'speedup=1.714',
+    'fig16_H_div_maj9': 'speedup=1.034', 'fig16_H_avg_maj5': 'speedup=1.503',
+    'fig16_H_avg_maj7': 'speedup=1.775', 'fig16_H_avg_maj9': 'speedup=0.846',
+    'fig17_mrc2': 'speedup=0.67', 'fig17_mrc4': 'speedup=2.02',
+    'fig17_mrc8': 'speedup=4.71', 'fig17_mrc16': 'speedup=10.09',
+    'fig17_mrc32': 'speedup=20.83', 'fig17_frac': 'speedup=2.76',
+    'fig17_rowclone': 'speedup=1.00', 'fig18_add32_per_op': 'dispatches=64',
+    'fig18_add32_fused': 'dispatches=34',
+    'fig18_add32_megakernel': 'dispatches=1',
+    'fig18_add32_pud_dram': 'energy_nj=112972.1', 'fig18_add32_savings': None,
+    'fig18_mul8_per_op': 'dispatches=1584',
+    'fig18_mul8_fused': 'dispatches=1429',
+    'fig18_mul8_megakernel': 'dispatches=1',
+    'fig18_mul8_pud_dram': 'energy_nj=2481557.1', 'fig18_mul8_savings': None,
+    'fig18_dispatch_energy_nj': None,
+    'table1_H_M': 'chips=56;density=4Gb;subarrays=(512, 640)',
+    'table1_H_A': 'chips=40;density=4Gb;subarrays=(512,)',
+    'table1_M_E': 'chips=16;density=16Gb;subarrays=(1024,)',
+    'table1_M_B': 'chips=8;density=16Gb;subarrays=(1024,)',
+    'kernel_majx9_64x2048[cuda]': None,
+    'kernel_bitserial_add_32x16x512[cuda]': None,
+    'kernel_fanout31_8x4096[cuda]': None,
+    'kernel_mismatch_1M_cells[cuda]': None,
+    'kernel_majx5_batch4_16x512[cuda]': None,
+}
+
+
+def run_captured(fn, *args, **kw) -> str:
+    """``fn(*args, **kw)``'s standard output (also echoed to stderr)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        fn(*args, **kw)
+    sys.stderr.write(out.getvalue())
+    return out.getvalue()
+
+
+def phase_paper(torch, kernel_mods) -> dict:
+    """``python -m repro_torch.paper.run`` in process on the card (a
+    fresh sweep root, no dry-run file), its rows held to the frozen
+    ones, each figure timed; then the five examples' ``main``."""
+    import tempfile
+
+    from repro_torch.backends.cuda import CudaBackend
+    from repro_torch.examples import (pud_arithmetic, quickstart,
+                                      serve_batch, tmr_checkpoint_demo,
+                                      train_tiny_lm)
+    from repro_torch.paper import figures, kernel_bench, run
+
+    t_phase = time.perf_counter()
+    fig_walls = {}
+
+    def timed_fig(fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            fig_walls[fn.__name__] = time.perf_counter() - t0
+            return out
+        call.__name__ = fn.__name__
+        return call
+
+    zero_launches(kernel_mods)
+    dispatches = []
+    undo = [count_calls(CudaBackend, "_launch", dispatches)]
+    saved = figures.FIGURES, kernel_bench.kernel_benchmarks
+    figures.FIGURES = tuple(timed_fig(fn) for fn in saved[0])
+    kernel_bench.kernel_benchmarks = timed_fig(saved[1])
+    try:
+        with tempfile.TemporaryDirectory(prefix="paper") as d:
+            csv = run_captured(run.main, ["--device", DEVICE, "--root",
+                                          os.path.join(d, "sweeps"),
+                                          "--results", d])
+        lines = csv.splitlines()
+        check(lines[0] == "name,us_per_call,derived",
+              f"paper: header {lines[0]!r}")
+        rows = [ln.split(",", 2) for ln in lines[1:]]
+        check([r[0] for r in rows] == list(PAPER_ROWS),
+              f"paper: row names {[r[0] for r in rows][:8]}... are not "
+              f"the frozen {len(PAPER_ROWS)}")
+        wrong = [(n, d, PAPER_ROWS[n]) for n, _, d in rows
+                 if paper_frozen(n, d) != PAPER_ROWS[n]]
+        check(not wrong, f"paper: rows off their frozen values: {wrong[:5]}")
+        kernels_rows = {n: {"us": float(us), "derived": d}
+                        for n, us, d in rows if n.startswith("kernel_")}
+        emit({"phase": "paper", "rows": len(rows),
+              "frozen_equal": sum(v is not None
+                                  for v in PAPER_ROWS.values()),
+              "kernel_bench": kernels_rows, "figure_walls_s": fig_walls})
+        progress("paper printer", t_phase)
+
+        examples = {}
+        for mod, argv, want in (
+                (quickstart, (), ("quickstart OK",)),
+                (pud_arithmetic, (), ("Mfr H MAJ9: avg 0.85x",)),
+                (serve_batch, (), ("param integrity 100.0000%",
+                                   "[serve] 8 requests, 96 new tokens")),
+                (tmr_checkpoint_demo, (), (
+                    "healed 1 replica(s), bit-exact=True",
+                    "post-scrub restore: 0 unhealthy")),
+                (train_tiny_lm, PAPER_TRAIN_ARGV, (
+                    "FAILURE: node_loss at step 7", "[example] loss:"))):
+            name = mod.__name__.rsplit(".", 1)[-1]
+            t0 = time.perf_counter()
+            out = run_captured(mod.main, [*argv, "--device", DEVICE])
+            examples[name] = time.perf_counter() - t0
+            check(all(w in out for w in want) and "False" not in out,
+                  f"paper: {name} printed {out[-600:]}")
+    finally:
+        figures.FIGURES, kernel_bench.kernel_benchmarks = saved
+        for u in undo:
+            u()
+    launches = read_launches(kernel_mods, tuple(kernel_mods),
+                             len(dispatches), "paper")
+    emit({"phase": "paper", "example_walls_s": examples,
+          "wall_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3278,6 +3645,7 @@ def main() -> int:
     zero_launches(kernel_mods)
     timed("dryrun", phase_dryrun)
     dryrun = read_launches(kernel_mods, (), 0, "dryrun")
+    paper = timed("paper", phase_paper, torch, kernel_mods)
     emit({"phase": "walls", "seconds": walls})
 
     replaces = {
@@ -3301,7 +3669,7 @@ def main() -> int:
             "launches": (path[name] + session[name] + arith[name]
                          + serve[name] + tmr[name] + sweep[name]
                          + sweep_ft[name] + lm[name] + train[name]
-                         + dryrun[name]),
+                         + dryrun[name] + paper[name]),
             "launches_by_path": {"path": path[name],
                                  "session": session[name],
                                  "arith": arith[name],
@@ -3311,7 +3679,8 @@ def main() -> int:
                                  "sweep_ft": sweep_ft[name],
                                  "lm_serve": lm[name],
                                  "train": train[name],
-                                 "dryrun": dryrun[name]},
+                                 "dryrun": dryrun[name],
+                                 "paper": paper[name]},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -363,6 +363,23 @@ def gather_unless_divides(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
                                  for p in x.placements])
 
 
+def gather_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` with the mesh axes that split ``dim`` gathered, once: for
+    an input that several products take whole along ``dim`` (the
+    sequence of the projections of one block), each of which would
+    otherwise gather it again, and whose backward would gather it again
+    for the weight's gradient.  A plain tensor is returned as is."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(x, DTensor):
+        return x
+    dim %= x.dim()
+    if not any(p.is_shard(dim) for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p.is_shard(dim) else p for p in x.placements])
+
+
 @contextlib.contextmanager
 def off_mesh():
     """Inside, no mesh is current: :func:`constraint` and

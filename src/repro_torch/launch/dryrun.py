@@ -159,6 +159,41 @@ def _storage_id(t: torch.Tensor) -> int:
     return id(t.untyped_storage())
 
 
+_PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_DTENSOR = os.path.join("torch", "distributed", "tensor") + os.sep
+
+
+def _issuer(last_op: str) -> tuple[str, str]:
+    """``(op, source)`` of a collective being issued now (see
+    :class:`~repro_torch.launch.roofline.CollectiveRecord`): read off the
+    Python stack.  A collective under DTensor's op dispatch belongs to
+    ``last_op``, the DTensor op the counter saw last; one under
+    DTensor's public API to that call (the outermost one).  The source
+    skips ``dist/sharding.py``'s helpers for the model code that called
+    them."""
+    op, source, dispatch = "", "", False
+    frame = sys._getframe(1)
+    while frame is not None:
+        path = frame.f_code.co_filename
+        if _DTENSOR in path:
+            if path.endswith("_dispatch.py"):
+                dispatch = True
+            elif path.endswith("_api.py"):
+                op = frame.f_code.co_name
+            elif path.endswith("_redistribute.py") and \
+                    frame.f_code.co_name == "backward":
+                op = op or "redistribute.backward"
+        elif not source and path.startswith(_PACKAGE) and \
+                path not in (__file__, shd.__file__):
+            rel = os.path.relpath(path, _PACKAGE).replace(os.sep, "/")
+            source = f"{rel}:{frame.f_code.co_name}"
+        frame = frame.f_back
+    node = getattr(torch._C, "_current_autograd_node", lambda: None)()
+    if node is not None:
+        source += f" <{node.name()}>"
+    return (last_op if dispatch or not op else op), source
+
+
 def _is_view(func) -> bool:
     return any(r.alias_info is not None and not r.alias_info.is_write
                for r in func._schema.returns)
@@ -182,6 +217,7 @@ class Counter(CommDebugMode):
         self.dtensor_ops = 0
         self.local_ops = 0
         self.collectives: list[rl.CollectiveRecord] = []
+        self._last_op = ""
         self.live = 0
         self.peak = 0
         self._storages: dict[int, int] = {}
@@ -210,6 +246,7 @@ class Counter(CommDebugMode):
             # CommDebugMode would also list each DTensor op with its
             # shapes and mesh; nothing here reads that list
             self.dtensor_ops += 1
+            self._last_op = str(func)
             return NotImplemented
         collective = (isinstance(func, torch._ops.OpOverload)
                       and func.namespace in _COLLECTIVE_NAMESPACES)
@@ -230,7 +267,8 @@ class Counter(CommDebugMode):
             name = func._schema.name.split("::")[-1].rstrip("_")
             if name in _KINDS or name.startswith(("all", "reduce")):
                 self.collectives.append(rl.CollectiveRecord(
-                    _KINDS.get(name, name), _nbytes(ins[:1]), _nbytes(outs)))
+                    _KINDS.get(name, name), _nbytes(ins[:1]), _nbytes(outs),
+                    *_issuer(self._last_op)))
             return out
         packet = func._overloadpacket
         if packet in flop_registry:

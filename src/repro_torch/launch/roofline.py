@@ -15,7 +15,8 @@ Sources & methodology (the dry run, :mod:`repro_torch.launch.dryrun`):
   cell's full-depth count equals the composition of its depth-0 and
   depth-1 counts).
 * collective bytes come from the collectives recorded during the run
-  (:class:`CollectiveRecord`: kind, operand and result bytes):
+  (:class:`CollectiveRecord`: kind, operand and result bytes, and what
+  issued it):
   all-reduce counts 2x its operand (ring reduce-scatter + all-gather),
   all-gather its result, the others their operand.  The eager run
   records every layer's and every microbatch's op itself, so no loop
@@ -46,11 +47,20 @@ KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
 
 @dataclasses.dataclass(frozen=True)
 class CollectiveRecord:
-    """One collective as one rank ran it."""
+    """One collective as one rank ran it.
+
+    ``op`` names what issued it: the aten op whose DTensor dispatch
+    redistributed an operand (``aten.mm.default``), or the DTensor call
+    that moved a tensor itself (``redistribute``, ``distribute_tensor``,
+    ...).  ``source`` is the port's function on the stack nearest the
+    collective (``models/model.py:_label_logit``), with the autograd node
+    in angle brackets where the backward ran it."""
 
     kind: str
     operand_bytes: int
     result_bytes: int
+    op: str = ""
+    source: str = ""
 
 
 @dataclasses.dataclass

@@ -23,7 +23,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import (axis_extent, constraint,
+from repro_torch.dist.sharding import (axis_extent, constraint, gather_dim,
                                        gather_unless_divides,
                                        grad_in_layout, run_local,
                                        split_like)
@@ -260,6 +260,7 @@ def _qkv(params, x: torch.Tensor, cfg: ModelConfig, positions):
     """Projected (q, k, v), RoPE applied at ``positions``."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    x = gather_dim(x, 1)
     q = gather_unless_divides(x @ params["wq"], -1, h).reshape(b, s, h, hd)
     k = gather_unless_divides(x @ params["wk"], -1, kvh).reshape(b, s, kvh,
                                                                  hd)

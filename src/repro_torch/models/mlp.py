@@ -6,6 +6,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import gather_dim
 from repro_torch.models.common import act_fn, dense_init
 
 
@@ -30,6 +31,7 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig):
 
 
 def mlp_forward(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = gather_dim(x, 1)
     if cfg.mlp_act == "swiglu":
         act = F.silu(x @ params["w_gate"])
         return (act * (x @ params["w_up"])) @ params["w_down"]

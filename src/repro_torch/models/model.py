@@ -34,7 +34,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import constraint
+from repro_torch.dist.sharding import constraint, gather_dim
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, mlp, moe, xlstm
 from repro_torch.models.common import (embed_init, generator, layer,
@@ -80,14 +80,18 @@ def _ffn(p, x, cfg: ModelConfig, **moe_kw):
 
 
 def _tblock_forward(p, x, positions, cfg: ModelConfig):
+    sp = "sp" if cfg.seq_shard else None
     h = attn.attention_forward(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
                                positions, cfg)
-    x = x + h
-    sp = "sp" if cfg.seq_shard else None
-    x = constraint(x, ("batch", sp, None))
+    # each branch's sum across ranks is scattered over the sequence
+    # before the residual add, so its gradient is gathered once, not by
+    # each product of its backward
+    x = constraint(x + constraint(h, ("batch", sp, None)),
+                   ("batch", sp, None))
     h, aux = _ffn(p, x, cfg)
     # sequence-parallel carry: the saved residual is seq-sharded
-    return constraint(x + h, ("batch", sp, None)), aux
+    return constraint(x + constraint(h, ("batch", sp, None)),
+                      ("batch", sp, None)), aux
 
 
 def _tblock_decode(p, x, cache, cfg: ModelConfig):
@@ -173,6 +177,7 @@ def _init_head(gen: torch.Generator, cfg: ModelConfig):
 
 
 def _head(p, embed_p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = gather_dim(x, 1)
     if cfg.family == "audio":
         from torch.distributed.tensor import DTensor
 
@@ -378,6 +383,19 @@ def _zamba_forward(params, x, positions, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
+def _replicate_vocab(r: torch.Tensor, last: int) -> torch.Tensor:
+    """A reduction ``r`` over the split vocabulary dim (pending across
+    the ranks that split it), summed into every one of them: laid out as
+    the logits are, with that split replicated.  DTensor would otherwise
+    scatter it over those ranks along the batch, and every op of the
+    loss's backward would then move its gradient back with an
+    all-to-all."""
+    from torch.distributed.tensor import Replicate
+
+    return r.redistribute(r.device_mesh, [
+        Replicate() if p.is_partial() else p for p in r.placements])
+
+
 def _logsumexp(lg: torch.Tensor) -> torch.Tensor:
     """``logsumexp`` over the last (vocabulary) dim.  DTensor gathers a
     split dim whole for ``torch.logsumexp``; a split DTensor takes the
@@ -389,8 +407,9 @@ def _logsumexp(lg: torch.Tensor) -> torch.Tensor:
     if not (isinstance(lg, DTensor)
             and any(p.is_shard(last) for p in lg.placements)):
         return torch.logsumexp(lg, dim=-1)
-    m = lg.detach().amax(dim=-1, keepdim=True)
-    return (m + torch.log(torch.exp(lg - m).sum(-1, keepdim=True)))[..., 0]
+    m = _replicate_vocab(lg.detach().amax(dim=-1, keepdim=True), last)
+    s = _replicate_vocab(torch.exp(lg - m).sum(-1, keepdim=True), last)
+    return (m + torch.log(s))[..., 0]
 
 
 def _label_logit(lg: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -414,7 +433,8 @@ def _label_logit(lg: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         lg.device_mesh,
         [Shard(0) if p.is_shard(last) else Replicate()
          for p in lg.placements], src_data_rank=None)
-    return (lg * (labels.long()[..., None] == vocab)).sum(-1)
+    return _replicate_vocab((lg * (labels.long()[..., None] == vocab))
+                            .sum(-1), last)
 
 
 def loss_fn(params, batch, cfg: ModelConfig, z_loss: float = 1e-4,

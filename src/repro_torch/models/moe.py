@@ -134,7 +134,9 @@ class _Combine(torch.autograd.Function):
         for j in range(ej.shape[0]):
             gath = _masked(_flat_gather(flat, ej[j] * c_ + pos[j]), keep[j])
             dws.append(torch.sum(dout * gath, dim=-1))
-        dweights = torch.stack(dws, dim=-1).to(weights.dtype)
+        # a new last dim named by its index: torch 2.11's DTensor reads
+        # stack's -1 against the inputs' rank and moves their splits
+        dweights = torch.stack(dws, dim=dws[0].dim()).to(weights.dtype)
         return dy, dweights, None, None, None, None, None, None
 
 
@@ -195,6 +197,25 @@ def _slots(topi: torch.Tensor, e: int, capacity: int, ep=None):
         torch.stack(keep)
 
 
+def _experts(params, buf: torch.Tensor) -> torch.Tensor:
+    """The expert FFN over the dispatch buffer ``buf`` (G, E, C, D).
+
+    The products run expert-major, on ``buf``'s (E, G, C, D) view, so
+    the hidden activations are made, and read by the down product, in
+    their own memory order: ``einsum`` flattens each operand through a
+    view where its dims already lie in the product's order, and copies
+    only an operand that it must permute (``buf``, as the ``gecd``
+    form also copies it).  In the ``gecf`` form the hidden activations
+    were a permuted view that the down product viewed again, and torch
+    2.11's DTensor took that view of a gathered local block whose
+    memory order was not the one its strides described."""
+    xe = buf.transpose(0, 1)
+    gate = torch.einsum("egcd,edf->egcf", xe, params["w_gate"])
+    up = torch.einsum("egcd,edf->egcf", xe, params["w_up"])
+    h = F.silu(gate) * up
+    return torch.einsum("egcf,efd->egcd", h, params["w_down"]).transpose(0, 1)
+
+
 def moe_forward(params, x: torch.Tensor, cfg: ModelConfig,
                 capacity: Optional[int] = None):
     """x: (B, S, D) -> (B, S, D), plus aux loss (scalar float32)."""
@@ -225,11 +246,7 @@ def moe_forward(params, x: torch.Tensor, cfg: ModelConfig,
     buf = _dispatch(xt, idx, slot_valid, ej, pos, keep)
     buf = constraint(buf, buf_axes)
 
-    gate = torch.einsum("gecd,edf->gecf", buf, params["w_gate"])
-    up = torch.einsum("gecd,edf->gecf", buf, params["w_up"])
-    h = F.silu(gate) * up
-    out_buf = torch.einsum("gecf,efd->gecd", h, params["w_down"])
-    out_buf = constraint(out_buf, buf_axes)
+    out_buf = constraint(_experts(params, buf), buf_axes)
 
     # per-slot combine weight (for the gather-only backward)
     w_e = torch.zeros((g, tg, e), dtype=x.dtype, device=dev)

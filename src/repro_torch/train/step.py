@@ -53,6 +53,19 @@ def batch_to(batch: dict, device) -> dict:
             for k, v in batch.items()}
 
 
+def _in_layout(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """The gradient ``g`` laid out as its param ``p``, as ``jax.grad``
+    gives it.  A DTensor gradient may come back pending a sum across
+    ranks (``Partial``); left so, every later op that reads it (the
+    global norm, then the update) would reduce it again.  A plain
+    tensor is returned as is."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(g, DTensor) or g.placements == p.placements:
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
+
+
 def loss_and_grads(params, batch: dict, cfg: ModelConfig, z_loss: float):
     """``(loss, metrics, grads)`` of ``M.loss_fn`` on a batch of tensors
     (``jax.value_and_grad``'s counterpart); a param the loss does not
@@ -63,7 +76,7 @@ def loss_and_grads(params, batch: dict, cfg: ModelConfig, z_loss: float):
         loss, metrics = M.loss_fn(tree_util.unflatten(structure, leaves),
                                   batch, cfg, z_loss=z_loss)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
+    grads = [torch.zeros_like(p) if g is None else _in_layout(g, p)
              for p, g in zip(leaves, grads)]
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, tree_util.unflatten(structure, grads)

@@ -319,11 +319,21 @@ for d in (0, 1):
     _, comp = lower_cell(c, shape, mesh, donate=False)
     hlo = comp.as_text()
     assert " while(" not in hlo   # each dot runs once
+    coll = rl.collective_bytes(hlo).bytes_by_kind
+    _, comp32 = lower_cell(dataclasses.replace(c, dtype="float32"), shape,
+                           mesh, donate=False)
     out[d] = {"xla_flops": _cost_analysis(comp).get("flops", 0.0),
-              "dot_flops": dot_flops(hlo),
-              "kinds": sorted(rl.collective_bytes(hlo).bytes_by_kind)}
+              "dot_flops": dot_flops(hlo), "kinds": sorted(coll),
+              "bytes": coll,
+              "bytes_f32": rl.collective_bytes(comp32.as_text()).bytes_by_kind}
 print(json.dumps(out))
 """
+
+
+@pytest.fixture(scope="module")
+def ref_points():
+    """:data:`REF_POINTS`' counts, by depth."""
+    return {int(d): v for d, v in run_script(REF_POINTS).items()}
 
 
 @pytest.fixture(scope="module")
@@ -336,23 +346,248 @@ def dense_points():
     return {d: got[f"n_layers={d},remat=none"] for d in depths}
 
 
-def test_depth_points_equal_the_references_products(dense_points):
+def test_depth_points_equal_the_references_products(dense_points,
+                                                     ref_points):
     """The port's per-chip FLOPs at depth 0 and 1 equal the FLOPs of the
     products in the reference's compiled points for the same cell.
     XLA's own count adds elementwise work on top (1.20-1.23x here,
-    printed).  The collective kinds are the reference's plus
-    reduce-scatter: DTensor reduces a split gradient with one where XLA
-    on the CPU all-reduces."""
-    want = run_script(REF_POINTS)
+    printed).  The collective kinds: DTensor reduce-scatters a split
+    gradient and a branch's output where XLA on the CPU all-reduces,
+    and gathers the embedding's table where XLA moves the looked-up rows
+    with all-to-alls (the bytes of each kind:
+    :func:`test_collective_bytes_by_kind_beside_the_reference`)."""
     for d in (0, 1):
-        got, ref = dense_points[d], want[str(d)]
+        got, ref = dense_points[d], ref_points[d]
         print(f"depth {d}: port {got['flops']:.0f}, reference products "
               f"{ref['dot_flops']:.0f}, XLA {ref['xla_flops']:.0f} "
               f"({ref['xla_flops'] / got['flops']:.3f}x); kinds "
               f"{got['kinds']} / {ref['kinds']}")
         assert got["flops"] == ref["dot_flops"] > 0, d
         assert ref["xla_flops"] >= ref["dot_flops"]
-        assert set(got["kinds"]) - {"reduce-scatter"} == set(ref["kinds"])
+        assert got["kinds"] == ["all-gather", "all-reduce",
+                                "reduce-scatter"], d
+        assert ref["kinds"] == ["all-gather", "all-reduce", "all-to-all"], d
+
+
+#: The port's collectives in the smoke chatglm3-6b train cell at float32
+#: (8 x 64 on the (4, 2) mesh, no remat): wire bytes a chip by (kind,
+#: issuing op, source), at depth 0 and for one layer (depth 1 less 0).
+PORT_GROUPS = r"""
+import collections, dataclasses, json
+from repro_torch.configs.registry import SHAPES, get_config
+from repro_torch.launch import dryrun as D, roofline as rl
+from repro_torch.launch.mesh import make_mesh
+D.fake_world(8)
+mesh = make_mesh((4, 2), ("data", "model"), device="fake")
+shape = dataclasses.replace(SHAPES["train_4k"], seq_len=64, global_batch=8)
+cfg = dataclasses.replace(get_config("chatglm3-6b", smoke=True),
+                          dtype="float32", remat="none")
+out = {}
+for d in (0, 1):
+    c = D.count_cell(dataclasses.replace(cfg, n_layers=d), shape, mesh)
+    groups = collections.Counter()
+    for r in c.collectives:
+        groups[" | ".join((r.kind, r.op, r.source))] += rl.wire_bytes(r)
+    out[d] = {"groups": groups, "flops": c.flops}
+print(json.dumps(out))
+"""
+
+_AG, _AR, _RS = "all-gather", "all-reduce", "reduce-scatter"
+_BWD = "train/step.py:loss_and_grads <RedistributeBackward>"
+_MM_BWD = "train/step.py:loss_and_grads <MmBackward0>"
+
+#: What :data:`PORT_GROUPS` counts: each group's bytes and what it moves.
+PORT_COLLECTIVES = {
+    0: {
+        # the embedding: its table's fsdp split gathered, the partial
+        # rows of the split vocabulary summed; in the backward, the
+        # activations' gradient gathered and the table's scattered
+        (_AG, "redistribute", "models/model.py:_lookup"): 32768,
+        (_AR, "redistribute", "models/model.py:_lookup"): 65536,
+        (_AG, "redistribute.backward", _BWD): 32768,
+        # the head: its input gathered over the sequence (once; its
+        # gradient scattered back, below), its weight's fsdp split
+        # gathered, and gathered again for the input's gradient
+        (_AG, "redistribute", "models/model.py:_head"): 32768,
+        (_AG, "aten.mm.default", "models/model.py:_head"): 32768,
+        (_AG, "aten.mm.default", _MM_BWD): 32768,
+        # the loss over the split vocabulary: the max, the sum of
+        # exponentials and the label's logit summed across its split
+        (_AR, "redistribute", "models/model.py:_replicate_vocab"): 3072,
+        # the head input's gradient (32,768) and the table's (65,536)
+        # scattered to their splits
+        (_RS, "redistribute.backward", _BWD): 98304,
+        # gradients brought to their params' layout: the head weight's
+        # scattered over its fsdp split, the final norm's scale summed
+        (_RS, "redistribute", "train/step.py:_in_layout"): 32768,
+        (_AR, "redistribute", "train/step.py:_in_layout"): 1024,
+        # the global norm's two partial sums of squares
+        (_AR, "aten.sqrt.default", "optim/adamw.py:global_norm"): 16,
+    },
+    "layer": {
+        # each weight's fsdp split gathered for its product (qkv 16,384,
+        # the output projection 8,192, the MLP 36,864), and again in
+        # the backward for the input's gradient
+        (_AG, "aten.mm.default", "models/attention.py:_qkv"): 16384,
+        (_AG, "aten.mm.default", "models/attention.py:_attend"): 8192,
+        (_AG, "aten.mm.default", "models/mlp.py:mlp_forward"): 36864,
+        (_AG, "aten.mm.default", _MM_BWD): 61440,
+        # the block's input gathered over the sequence once for the
+        # attention and once for the MLP; each branch's output summed
+        # and scattered over the sequence; the backward of both: the
+        # branch outputs' gradients gathered, the inputs' scattered
+        (_AG, "redistribute", "models/attention.py:_qkv"): 32768,
+        (_AG, "redistribute", "models/mlp.py:mlp_forward"): 32768,
+        (_RS, "redistribute", "models/model.py:_tblock_forward"): 65536,
+        (_AG, "redistribute.backward", _BWD): 65536,
+        (_RS, "redistribute.backward", _BWD): 65536,
+        # the layer's gradients: the weights' scattered over their fsdp
+        # splits, the two norm scales summed
+        (_RS, "redistribute", "train/step.py:_in_layout"): 61440,
+        (_AR, "redistribute", "train/step.py:_in_layout"): 2048,
+    },
+}
+
+#: The reference's wire bytes by kind for the same cell (its HLO).
+REF_COLLECTIVES = {
+    0: {_AG: 117760, _AR: 361536, "all-to-all": 65536},
+    "layer": {_AG: 335872, _AR: 608368, "all-to-all": 32768},
+}
+
+
+def test_collective_bytes_by_kind_beside_the_reference(ref_points):
+    """Each collective kind's wire bytes a chip in the smoke chatglm3-6b
+    train cell (8 x 64 on a (4, 2) mesh, no remat), at depth 0 and for
+    one layer, held to the reference's HLO.  The port runs the cell at
+    float32: XLA on the CPU carries this bf16 config's products in
+    float32 (its bytes are equal for both dtypes, asserted), so the same
+    element size is compared.  The port's groups are
+    :data:`PORT_COLLECTIVES` (asserted whole); no kind is equal, and
+    each gap is this attribution:
+
+    Depth 0 (embedding, final norm, head, loss, AdamW):
+
+    * all-gather +46,080: the port gathers the table's fsdp split
+      (32,768) where XLA gathers the token ids (3,072) and moves rows by
+      all-to-all; it keeps the head's vocabulary split and gathers its
+      input over the sequence (32,768) and its weight over the fsdp
+      split twice, forward and backward (65,536), where XLA splits the
+      head's batch 8 ways and gathers the weight whole once (81,920);
+      the activations' gradient, 32,768, on both sides:
+      29,696 + 32,768 - 16,384.
+    * all-reduce -291,888: the partial rows of the lookup, 65,536 on
+      both sides; XLA all-reduces the table's and the head's gradients
+      whole (32,768 + 131,072 + 131,072) where the port reduce-scatters
+      them; the port sums the loss over the split vocabulary (3,072) and
+      the norm scale and norm partials (1,040 against XLA's 1,088).
+    * reduce-scatter +131,072: those two gradients (65,536 + 32,768)
+      and the head input's gradient (32,768); XLA has none.
+    * all-to-all -65,536: XLA's row moves of the lookup and of its
+      backward; the port has none.
+
+    One layer:
+
+    * all-gather -81,920: the port gathers each weight over its fsdp
+      split only, forward and backward (122,880), where XLA gathers the
+      weights whole, the tp split too (270,336); the port gathers the
+      block's input over the sequence for each branch and each branch's
+      output gradient (131,072), XLA two activation gradients (65,536).
+    * reduce-scatter +192,512: the port's branch outputs and inputs'
+      gradients over the sequence (131,072) and the weights' gradients
+      (61,440, one operand each) where XLA all-reduces.
+    * all-to-all -32,768: XLA's four head re-layouts in the attention;
+      the port's attention runs on each rank's own heads.
+    * all-reduce -606,320: the port sums only the two norm scales
+      (2,048).  XLA's 608,368 hold its branch outputs (the attention's
+      65,536 in the loop) and the layer's gradients whole (the in-loop
+      weight gradients, 91,136) and, fused with the global norm's sums
+      outside the loop, 451,696 that list each MLP gradient twice; that
+      remainder is not attributed tensor by tensor (ROADMAP queue 3).
+    """
+    got = run_script(PORT_GROUPS)
+    assert {int(d): v["flops"] for d, v in got.items()} == {
+        d: ref_points[d]["dot_flops"] for d in (0, 1)}
+    ports = {d: {tuple(k.split(" | ")): v
+                 for k, v in got[str(d)]["groups"].items()} for d in (0, 1)}
+    layer = {k: ports[1].get(k, 0) - ports[0].get(k, 0)
+             for k in set(ports[0]) | set(ports[1])}
+    assert ports[0] == PORT_COLLECTIVES[0]
+    assert {k: v for k, v in layer.items() if v} == \
+        PORT_COLLECTIVES["layer"]
+    for d in (0, 1):
+        assert ref_points[d]["bytes"] == ref_points[d]["bytes_f32"], d
+    refs = {0: ref_points[0]["bytes"],
+            "layer": {k: ref_points[1]["bytes"][k]
+                      - ref_points[0]["bytes"].get(k, 0)
+                      for k in ref_points[1]["bytes"]}}
+    gaps = {0: {_AG: 46080, _AR: -291888, _RS: 131072, "all-to-all": -65536},
+            "layer": {_AG: -81920, _AR: -606320, _RS: 192512,
+                      "all-to-all": -32768}}
+    for at in (0, "layer"):
+        assert refs[at] == REF_COLLECTIVES[at], at
+        port = {}
+        for (kind, _, _), b in PORT_COLLECTIVES[at].items():
+            port[kind] = port.get(kind, 0) + b
+        for kind, gap in gaps[at].items():
+            assert port.get(kind, 0) - refs[at].get(kind, 0) == gap, \
+                (at, kind)
+
+
+#: The smoke MoE cells counted with the expert FFN as it is (argv
+#: ``egcd``) or in its earlier form (``gecd``-ordered einsums), on a fake
+#: world of 8.
+MOE_FORMS = r"""
+import dataclasses, json, sys, torch
+import torch.nn.functional as F
+from repro_torch.configs.registry import SHAPES, get_config
+from repro_torch.launch import dryrun as D, roofline as rl
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import moe
+
+def gecd(params, buf):
+    gate = torch.einsum("gecd,edf->gecf", buf, params["w_gate"])
+    up = torch.einsum("gecd,edf->gecf", buf, params["w_up"])
+    return torch.einsum("gecf,efd->gecd", F.silu(gate) * up,
+                        params["w_down"])
+
+D.fake_world(8)
+mesh = make_mesh((4, 2), ("data", "model"), device="fake")
+if sys.argv[1] == "gecd":
+    moe._experts = gecd
+out = {}
+for arch in ("qwen3-moe-235b-a22b", "mixtral-8x22b"):
+    for name, seq in (("train_4k", 64), ("decode_32k", 128)):
+        shape = dataclasses.replace(SHAPES[name], seq_len=seq,
+                                    global_batch=8)
+        c = D.count_cell(get_config(arch, smoke=True), shape, mesh)
+        out[f"{arch}/{name}"] = {
+            "flops": c.flops, "bytes": c.bytes_accessed,
+            "kinds": rl.collective_bytes(c.collectives).bytes_by_kind}
+print(json.dumps(out))
+"""
+
+
+def test_moe_expert_products_count_as_before():
+    """The expert FFN runs expert-major (``models/moe.py:_experts``), so
+    torch 2.11's DTensor takes no view of a gathered block whose memory
+    order its strides misdescribe.  Under this torch the smoke qwen3-moe
+    (experts split) and mixtral (split within each expert) cells count
+    the same FLOPs and collective bytes of each kind as with the earlier
+    ``gecd``-ordered einsums, and the same bytes but in mixtral's
+    decode: 16,384 fewer there, one ``cat`` that reassembled an
+    all-gather along the second dim of an expert block which the new
+    form gathers along its first.  Each form counts in a process of its
+    own, in the same order: a process's first count of a cell reads
+    more bytes than a second one (ROADMAP queue 3)."""
+    now, before = run_script(MOE_FORMS, "egcd"), run_script(MOE_FORMS,
+                                                           "gecd")
+    assert len(now) == 4
+    for key, new in now.items():
+        old = before[key]
+        assert new["flops"] == old["flops"] > 0, key
+        assert new["kinds"] == old["kinds"], key
+        less = 16384 if key == "mixtral-8x22b/decode_32k" else 0
+        assert new["bytes"] == old["bytes"] - less, key
 
 
 def test_full_depth_counts_equal_the_composition(dense_points):

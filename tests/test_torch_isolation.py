@@ -75,5 +75,45 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-def test_entry_points_default_to_the_card():
+#: Entry points that take ``--device``, each with the other arguments it
+#: needs; run with no ``--device``, each must try the card.
+DEVICE_ENTRY_POINTS = (
+    ("repro_torch.paper.run", []),
+    ("repro_torch.paper.run_all_cells", ["{tmp}/cells.json"]),
+    ("repro_torch.examples.quickstart", []),
+    ("repro_torch.examples.pud_arithmetic", []),
+    ("repro_torch.examples.serve_batch", []),
+    ("repro_torch.examples.tmr_checkpoint_demo", []),
+    ("repro_torch.examples.train_tiny_lm", ["--small", "--steps", "2"]),
+)
+
+
+def test_entry_points_default_to_the_card(tmp_path):
+    """The execution context defaults to the card, and so does each
+    ``--device`` entry point of ``paper/`` and ``examples/`` (and of
+    ``kernel_bench`` and ``figures``' functions): with no card, each
+    raises on its first use of it rather than fall back to the CPU, and
+    writes nothing."""
+    import importlib
+    import inspect
+
+    import torch
+
     assert ExecutionContext().device == "cuda"
+    from repro_torch.paper import figures, kernel_bench
+
+    for fn in figures.FIGURES + (kernel_bench.kernel_benchmarks,):
+        assert inspect.signature(fn).parameters["device"].default == \
+            "cuda", fn.__name__
+    if torch.cuda.is_available():
+        return
+    for name, argv in DEVICE_ENTRY_POINTS:
+        mod = importlib.import_module(name)
+        args = [a.format(tmp=tmp_path) for a in argv]
+        try:
+            mod.main(args)
+        except (AssertionError, RuntimeError) as e:
+            assert "cuda" in str(e).lower(), (name, e)
+        else:
+            raise AssertionError(f"{name} ran without a card")
+    assert os.listdir(tmp_path) == []
