@@ -3091,10 +3091,11 @@ def phase_train(torch, kernel_mods) -> dict:
 # ------------------------------------------------------------ dryrun
 #: The fake-world cells: (arch, shape, multi-pod).  Four families at
 #: train_4k, two decode cells (one with its experts split over the tp
-#: axis), a 500k-token cell and one on the multi-pod mesh; each runs in
-#: a process of its own, all at once.  zamba2-1.2b's and xlstm-125m's
-#: train_4k cells take 2 and 7 minutes to count (their recurrences,
-#: step by step): they run in ``--all``, not here.
+#: axis), a 500k-token cell and a decode and a train cell on the
+#: multi-pod mesh; each runs in a process of its own, all at once.
+#: zamba2-1.2b's and xlstm-125m's train_4k cells take 2 and 7 minutes to
+#: count (their recurrences, step by step): they run in ``--all``, not
+#: here.
 DRYRUN_CELLS = (("chatglm3-6b", "train_4k", False),
                 ("mixtral-8x22b", "train_4k", False),
                 ("qwen3-moe-235b-a22b", "decode_32k", False),
@@ -3102,7 +3103,24 @@ DRYRUN_CELLS = (("chatglm3-6b", "train_4k", False),
                 ("phi-3-vision-4.2b", "train_4k", False),
                 ("chatglm3-6b", "decode_32k", False),
                 ("xlstm-125m", "long_500k", False),
-                ("chatglm3-6b", "decode_32k", True))
+                ("chatglm3-6b", "decode_32k", True),
+                ("chatglm3-6b", "train_4k", True))
+#: The cell counted twice in one process (single pod, one microbatch):
+#: the second count must equal the first, field by field, or a count
+#: depends on what the process ran before it.
+DRYRUN_TWICE_CELL = ("chatglm3-6b", "train_4k")
+DRYRUN_TWICE = r"""
+import json, sys
+from repro_torch.configs.registry import SHAPES, get_config
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import make_production_mesh
+arch, shape, mb = sys.argv[1], sys.argv[2], int(sys.argv[3])
+D.fake_world(256)
+mesh = make_production_mesh(device="fake")
+print(json.dumps([D.counts_json(D.count_cell(
+    get_config(arch), SHAPES[shape], mesh, microbatches=mb))
+    for _ in range(2)]))
+"""
 #: Grad-accumulation microbatches of the train cells (the reference's
 #: dry run defaults to 4, which takes about twice as long to count).
 DRYRUN_MICROBATCHES = 1
@@ -3180,6 +3198,8 @@ def phase_dryrun() -> dict:
         for arch, batch, seq, codec in TRAIN_RUNS:
             cmds.append(["-c", DRYRUN_ONE_CARD, arch, str(batch), str(seq),
                          codec, smoke])
+        cmds.append(["-c", DRYRUN_TWICE, *DRYRUN_TWICE_CELL,
+                     str(DRYRUN_MICROBATCHES)])
         done = dryrun_procs(cmds)
         cells = []
         for i, (arch, shape, multi) in enumerate(DRYRUN_CELLS):
@@ -3242,7 +3262,19 @@ def phase_dryrun() -> dict:
                   f"dryrun one-card {arch}: {got}")
             one_card.append(rep)
             emit({"phase": "dryrun", "one_card": rep})
-    return {"cells": cells, "one_card": one_card,
+        rc, stdout, stderr, wall = done[-1]
+        arch, shape = DRYRUN_TWICE_CELL
+        check(rc == 0, f"dryrun twice {arch} {shape}: {stderr[-2000:]}")
+        first, second = json.loads(stdout.strip().splitlines()[-1])
+        differ = sorted(k for k in first if first[k] != second[k])
+        emit({"phase": "dryrun", "twice": {
+            "arch": arch, "shape": shape, "process_wall_s": wall,
+            "differ": differ, "collective_groups": len(first["collectives"]),
+            **{n: {k: v for k, v in c.items() if k != "collectives"}
+               for n, c in (("first", first), ("second", second))}}})
+        check(not differ, f"dryrun twice {arch} {shape}: the second count "
+              f"differs from the first in {differ}")
+    return {"cells": cells, "one_card": one_card, "twice_equal": not differ,
             "wall_s": time.perf_counter() - t_phase}
 
 

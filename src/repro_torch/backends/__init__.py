@@ -9,7 +9,10 @@ One :class:`~repro_torch.pud.isa.Program`, interchangeable executors:
 Every backend takes the same :class:`ExecutionContext` (calibration
 point, device, launch geometry), so a backend is a one-string config
 choice.  The ``cuda`` backend runs on the card unless the context names
-another device.
+another device.  New executors register with :func:`register_backend`
+and reach every consumer that resolves a backend by name
+(:func:`get_backend`, :func:`resolve_backend`, ``DramSession(name)``,
+a ``SweepSpec``'s backend).
 """
 
 from __future__ import annotations
@@ -22,11 +25,18 @@ from repro_torch.backends.cuda import CudaBackend
 from repro_torch.backends.oracle import OracleBackend
 from repro_torch.backends.sim import SimBackend
 
-_REGISTRY: dict[str, Type[Backend]] = {
-    "cuda": CudaBackend,
-    "oracle": OracleBackend,
-    "sim": SimBackend,
-}
+_REGISTRY: dict[str, Type[Backend]] = {}
+
+
+def register_backend(name: str):
+    """Class decorator: register a Backend implementation under a name."""
+
+    def deco(cls: Type[Backend]) -> Type[Backend]:
+        cls.name = name
+        _REGISTRY[name] = cls
+        return cls
+
+    return deco
 
 
 def available_backends() -> tuple[str, ...]:
@@ -61,8 +71,13 @@ def resolve_backend(backend: "str | Backend",
     return get_backend(backend, ctx)
 
 
+# Register the three shipped implementations.
+register_backend("cuda")(CudaBackend)
+register_backend("oracle")(OracleBackend)
+register_backend("sim")(SimBackend)
+
 __all__ = [
     "Backend", "Capabilities", "CudaBackend", "ExecutionContext",
     "OracleBackend", "SimBackend", "Timings", "available_backends",
-    "get_backend", "resolve_backend",
+    "get_backend", "register_backend", "resolve_backend",
 ]

@@ -180,6 +180,47 @@ def majority_words(planes: torch.Tensor, axis: int = 0) -> torch.Tensor:
     return gt | eq
 
 
+def weighted_majority(planes: torch.Tensor, weights,
+                      axis: int = 0) -> torch.Tensor:
+    """Weighted bitwise majority: 1 iff sum(w_i * bit_i) > sum(w) / 2.
+
+    The MAJ-composition identities of §8.1 use it (the two-position carry
+    c2 = MAJ7(a1,a1,b1,b1,a0,b0,c0) is the weighted majority (2, 2, 1, 1,
+    1) of (a1, b1, a0, b0, c0)).  ``weights`` holds one integer a plane
+    along ``axis``.
+
+    Computed on whole words, like :func:`majority_words`: each lane's
+    weighted sum is kept bit-sliced in ``k`` two's-complement digit
+    words, each plane adds its weight into the lanes where its bit is set
+    by a ripple of full adders, then ``sum(w) // 2 + 1`` is subtracted;
+    a lane's answer is its clear sign digit.  ``k`` is a few more than
+    ``log2(sum |w|)``, so the temporaries are a few planes, never the 32
+    lanes a word that the reference expands to.  The planes stay on
+    their device.
+    """
+    planes = torch.movedim(planes, axis, 0)
+    w = [int(v) for v in torch.as_tensor(weights).reshape(-1).tolist()]
+    if len(w) != planes.shape[0]:
+        raise ValueError(f"{len(w)} weights for {planes.shape[0]} planes")
+    zero = planes.new_zeros(planes.shape[1:])
+    thresh = sum(w) // 2 + 1                    # sum > sum(w) / 2
+    k = (sum(map(abs, w)) + abs(thresh)).bit_length() + 1
+
+    def add(digits, bit, value):
+        """``digits`` plus ``value`` in the lanes where ``bit`` is set."""
+        out, carry = [], zero
+        for i, d in enumerate(digits):
+            a = bit if (value >> i) & 1 else zero
+            out.append(d ^ a ^ carry)
+            carry = (d & a) | (carry & (d ^ a))
+        return out
+
+    digits = [zero] * k
+    for plane, wi in zip(planes, w):
+        digits = add(digits, plane, wi)
+    return ~add(digits, ~zero, -thresh)[-1]
+
+
 def pack_uint_elements(x: torch.Tensor, n_bits: int = 32) -> torch.Tensor:
     """Transpose ``k`` unsigned integers into ``n_bits`` bit-planes.
 

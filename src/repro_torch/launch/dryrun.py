@@ -41,6 +41,7 @@ import traceback
 import weakref
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.debug import CommDebugMode
 from torch.distributed.tensor.experimental import implicit_replication
@@ -206,7 +207,19 @@ class Counter(CommDebugMode):
     to local ops, which this mode sees next: FLOPs, bytes accessed and
     memory are counted on those, the local shards of rank 0.  Only ops
     on ``meta`` tensors count; DTensor's own bookkeeping on the host
-    does not."""
+    does not.
+
+    Nor does its sharding propagation: the first time DTensor meets an
+    op schema it runs the op on fake tensors at the *global* shape to
+    derive the output's metadata (``ShardingPropagator.
+    _propagate_tensor_meta_non_cached``, then cached), and a fake
+    tensor's device is ``meta``.  Such ops are recognised by their
+    tensors: the dry run's own state is plain ``meta`` tensors, never
+    fake, so an op with a ``FakeTensor`` among its inputs or outputs is
+    DTensor's and counts nowhere (FLOPs, bytes, ``local_ops``, live
+    memory).  That keeps a process's first count of a cell equal to a
+    later one, and needs no hook in DTensor's private propagator, whose
+    methods and call sites differ between releases."""
 
     device = torch.device("meta")
 
@@ -258,7 +271,8 @@ class Counter(CommDebugMode):
             out = super().__torch_dispatch__(func, types, args, kwargs)
         ins = _tensors(list(args) + list((kwargs or {}).values()))
         outs = _tensors(out)
-        if not any(t.device == self.device for t in ins + outs):
+        if not any(t.device == self.device for t in ins + outs) or \
+                any(isinstance(t, FakeTensor) for t in ins + outs):
             return out
         self.local_ops += 1
         for t in outs:
@@ -293,6 +307,24 @@ class CellCounts:
     dtensor_ops: int
     local_ops: int
     wall_s: float
+
+
+def counts_json(c: CellCounts) -> dict:
+    """Every count in ``c`` but its wall, as JSON, with the collectives
+    grouped by kind, issuing op and source (``"kind | op | source"``:
+    their number and operand and result bytes): what two counts of one
+    cell must share."""
+    groups: dict = {}
+    for r in c.collectives:
+        g = groups.setdefault(" | ".join((r.kind, r.op, r.source)),
+                              [0, 0, 0])
+        g[0] += 1
+        g[1] += r.operand_bytes
+        g[2] += r.result_bytes
+    out = dataclasses.asdict(c)
+    del out["wall_s"]
+    out["collectives"] = groups
+    return out
 
 
 def _place(x: torch.Tensor, sharding: shd.Sharding):

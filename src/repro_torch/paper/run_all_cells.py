@@ -10,12 +10,14 @@ device, in a fresh store, whose records must all succeed against the
 oracle, so a bad backend fails in seconds rather than after hours of
 cells.  Train cells take the reference's microbatches by arch (:data:`MB`);
 a cell already ``ok`` or ``skipped`` in the output file is not run
-again, so an interrupted run resumes.
+again, so an interrupted run resumes.  ``--jobs N`` runs N cells side by
+side (the reference runs one at a time); train cells start first, then
+prefill, then decode, so the slowest kinds do not start last.
 
 Usage:
   python -m repro_torch.paper.run_all_cells results/torch_dryrun_single.json
       [--pud-backend NAME] [--device cpu] [--multipod] [--skip-cost]
-      [--serve-rules]
+      [--serve-rules] [--jobs N]
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor, as_completed
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
@@ -84,12 +87,20 @@ def cell_command(arch: str, shape: str, out: str, args) -> list:
 
 def pending(results: list, only_kinds: str = "") -> list:
     """The (arch, shape) cells still to run: not ``ok`` or ``skipped`` in
-    ``results``, and of a kind in ``only_kinds`` where it is given."""
+    ``results``, and of a kind in ``only_kinds`` where it is given; shape
+    by shape, so train cells come first, then prefill, then decode (the
+    slowest kinds first)."""
     done = {(r["arch"], r["shape"]) for r in results
             if r.get("status") in ("ok", "skipped")}
-    return [(a, s) for a in ARCHS for s in SHAPES
+    return [(a, s) for s in SHAPES for a in ARCHS
             if (a, s) not in done and (not only_kinds
                                        or KIND[s] in only_kinds)]
+
+
+def timed_cell(arch: str, shape: str, args) -> tuple[dict, float]:
+    """:func:`run_cell`'s row and the seconds it took."""
+    t0 = time.time()
+    return run_cell(arch, shape, args), time.time() - t0
 
 
 def run_cell(arch: str, shape: str, args) -> dict:
@@ -97,9 +108,13 @@ def run_cell(arch: str, shape: str, args) -> dict:
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "cell.json")
-        p = subprocess.run(cell_command(arch, shape, out, args), env=env,
-                           cwd=REPO, capture_output=True, text=True,
-                           timeout=CELL_TIMEOUT)
+        try:
+            p = subprocess.run(cell_command(arch, shape, out, args),
+                               env=env, cwd=REPO, capture_output=True,
+                               text=True, timeout=CELL_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            return {"arch": arch, "shape": shape, "status": "error",
+                    "error": f"no row after {CELL_TIMEOUT} s"}
         try:
             with open(out) as f:
                 return json.load(f)[0]
@@ -118,23 +133,27 @@ def main(argv=None) -> int:
     ap.add_argument("--multipod", action="store_true")
     ap.add_argument("--skip-cost", action="store_true")
     ap.add_argument("--serve-rules", action="store_true")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="cells run side by side, a process each")
     args = ap.parse_args(argv)
 
     pud_preflight(args.pud_backend, args.device)
     results = load_results(args.out)
-    for arch, shape in pending(results, os.environ.get("ONLY_KINDS", "")):
-        t0 = time.time()
-        r = run_cell(arch, shape, args)
-        results = [x for x in results
-                   if (x["arch"], x["shape"]) != (arch, shape)] + [r]
-        extra = ""
-        if r["status"] == "ok":
-            extra = (f"mem={r['memory']['total_gb']:.1f}GB "
-                     f"bound={r['roofline']['bottleneck']}")
-        print(f"[{arch} {shape}] {r['status']} {extra} "
-              f"({time.time() - t0:.0f}s)", flush=True)
-        with open(args.out, "w") as f:
-            json.dump(results, f, indent=1)
+    with ThreadPoolExecutor(max(1, args.jobs)) as pool:
+        running = [pool.submit(timed_cell, arch, shape, args) for arch, shape
+                   in pending(results, os.environ.get("ONLY_KINDS", ""))]
+        for done in as_completed(running):
+            r, wall = done.result()
+            results = [x for x in results if (x["arch"], x["shape"])
+                       != (r["arch"], r["shape"])] + [r]
+            extra = ""
+            if r["status"] == "ok":
+                extra = (f"mem={r['memory']['total_gb']:.1f}GB "
+                         f"bound={r['roofline']['bottleneck']}")
+            print(f"[{r['arch']} {r['shape']}] {r['status']} {extra} "
+                  f"({wall:.0f}s)", flush=True)
+            with open(args.out, "w") as f:
+                json.dump(results, f, indent=1)
     n_ok = sum(r.get("status") == "ok" for r in results)
     n_skip = sum(r.get("status") == "skipped" for r in results)
     print(f"TOTAL: {n_ok} ok, {n_skip} skipped, "

@@ -143,6 +143,39 @@ def test_registry():
     assert be.capabilities().megakernel and be.capabilities().native_batch
 
 
+def test_registry_accepts_new_backend():
+    """The reference's ``test_registry_accepts_new_backend``, ported: a
+    class registered under a new name gets that name and reaches every
+    consumer that resolves by name (``get_backend``, ``resolve_backend``,
+    ``DramSession(name)``, a ``SweepSpec``'s backend check); the registry
+    is restored afterwards."""
+    from repro_torch.backends import _REGISTRY, Backend, register_backend
+    from repro_torch.session import DramSession
+    from repro_torch.sweep.spec import SweepSpec
+
+    before = dict(_REGISTRY)
+    try:
+        @register_backend("oracle2")
+        class Oracle2(get_backend("oracle").__class__):
+            pass
+
+        assert Oracle2.name == "oracle2"
+        assert "oracle2" in available_backends()
+        assert isinstance(get_backend("oracle2"), Backend)
+        assert type(resolve_backend("oracle2", CPU)) is Oracle2
+        session = DramSession("oracle2", CPU)
+        assert type(session.backend) is Oracle2
+        assert session.name == "session[oracle2]"
+        spec = SweepSpec(name="t", backends=("oracle2",))
+        assert spec.backends == ("oracle2",)
+    finally:  # don't leak the test backend into the process registry
+        _REGISTRY.clear()
+        _REGISTRY.update(before)
+    assert available_backends() == ("cuda", "oracle", "sim")
+    with pytest.raises(ValueError, match="unknown backends"):
+        SweepSpec(name="t", backends=("oracle2",))
+
+
 def test_unported_kernels_raise():
     """No kernel is left unported, so nothing raises for want of one:
     ``add_planes`` (the last, which raised ``NotImplementedError`` here

@@ -69,6 +69,49 @@ def test_majority_matches_reference(n):
     assert (got == np.asarray(ref.majority(planes))).all()
 
 
+#: Weight vectors for :func:`weighted_majority`: odd totals, even totals
+#: with ties, zero, negative and single weights.
+WEIGHTS = ((2, 2, 1), (2, 2, 1, 1, 1), (1, 1, 1, 1), (1, 2, 3, 4), (1, 1),
+           (3, -1, 2), (0, 0, 0), (-2, 1, 1), (7,), (1, 1, 1, 1, 1, 1, 1))
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("weights", WEIGHTS, ids=str)
+def test_weighted_majority_matches_reference(weights, axis):
+    rng = np.random.default_rng([len(weights), sum(weights) + 8, axis])
+    planes = rand_u32(rng, len(weights), 4, 9)
+    planes[:, 0, 0] = 0x80000001  # every plane votes the sign bit in
+    if axis:
+        planes = np.moveaxis(planes, 0, axis).copy()
+    got = bp.weighted_majority(_t(planes), weights, axis=axis)
+    want = ref.weighted_majority(jnp.asarray(planes), jnp.asarray(weights),
+                                 axis=axis)
+    assert got.dtype == torch.int32 and got.device == torch.device("cpu")
+    assert (bp.to_u32(got) == np.asarray(want)).all()
+
+
+@sweep(n_cases=6, seed=0x2A1)
+def test_weighted_majority_identities(rng):
+    """MAJ3(x, y, z) is the weighted majority (2, 2, 1) of (x, y, z), and
+    §8.1's two-position carry c2 = MAJ7(a1,a1,b1,b1,a0,b0,c0) is the
+    weighted majority (2, 2, 1, 1, 1) of (a1, b1, a0, b0, c0): the carry
+    out of the 2-bit sum (2 a1 + a0) + (2 b1 + b0) + c0, lane by lane."""
+    x, y, z = (_t(rand_u32(rng, 16)) for _ in range(3))
+    assert torch.equal(bp.weighted_majority(torch.stack([x, y, z]),
+                                            (2, 2, 1)),
+                       bp.maj3_words(x, y, z))
+    a1, b1, a0, b0, c0 = (rand_u32(rng, 16) for _ in range(5))
+    c2 = bp.to_u32(bp.weighted_majority(
+        _t(np.stack([a1, b1, a0, b0, c0])), (2, 2, 1, 1, 1)))
+    assert (c2 == bp.to_u32(bp.majority(
+        _t(np.stack([a1, a1, b1, b1, a0, b0, c0]))))).all()
+    lanes = [np.unpackbits(w.view(np.uint8), bitorder="little").astype(int)
+             for w in (a1, b1, a0, b0, c0)]
+    total = 2 * lanes[0] + lanes[2] + 2 * lanes[1] + lanes[3] + lanes[4]
+    assert (np.unpackbits(c2.view(np.uint8), bitorder="little")
+            == (total >= 4)).all()
+
+
 @pytest.mark.parametrize("k", WORD_EDGES)
 def test_pack_uint_elements_word_boundary(k):
     rng = np.random.default_rng(k)

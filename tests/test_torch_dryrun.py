@@ -533,9 +533,10 @@ def test_collective_bytes_by_kind_beside_the_reference(ref_points):
                 (at, kind)
 
 
-#: The smoke MoE cells counted with the expert FFN as it is (argv
-#: ``egcd``) or in its earlier form (``gecd``-ordered einsums), on a fake
-#: world of 8.
+#: The smoke MoE cells counted with the expert FFN as it is (``egcd``)
+#: and in its earlier form (``gecd``-ordered einsums), one after the
+#: other in one process on a fake world of 8: argv names the forms in
+#: order.
 MOE_FORMS = r"""
 import dataclasses, json, sys, torch
 import torch.nn.functional as F
@@ -552,17 +553,19 @@ def gecd(params, buf):
 
 D.fake_world(8)
 mesh = make_mesh((4, 2), ("data", "model"), device="fake")
-if sys.argv[1] == "gecd":
-    moe._experts = gecd
+forms = {"egcd": moe._experts, "gecd": gecd}
 out = {}
-for arch in ("qwen3-moe-235b-a22b", "mixtral-8x22b"):
-    for name, seq in (("train_4k", 64), ("decode_32k", 128)):
-        shape = dataclasses.replace(SHAPES[name], seq_len=seq,
-                                    global_batch=8)
-        c = D.count_cell(get_config(arch, smoke=True), shape, mesh)
-        out[f"{arch}/{name}"] = {
-            "flops": c.flops, "bytes": c.bytes_accessed,
-            "kinds": rl.collective_bytes(c.collectives).bytes_by_kind}
+for form in sys.argv[1:]:
+    moe._experts = forms[form]
+    out[form] = {}
+    for arch in ("qwen3-moe-235b-a22b", "mixtral-8x22b"):
+        for name, seq in (("train_4k", 64), ("decode_32k", 128)):
+            shape = dataclasses.replace(SHAPES[name], seq_len=seq,
+                                        global_batch=8)
+            c = D.count_cell(get_config(arch, smoke=True), shape, mesh)
+            out[form][f"{arch}/{name}"] = {
+                "flops": c.flops, "bytes": c.bytes_accessed,
+                "kinds": rl.collective_bytes(c.collectives).bytes_by_kind}
 print(json.dumps(out))
 """
 
@@ -576,11 +579,12 @@ def test_moe_expert_products_count_as_before():
     ``gecd``-ordered einsums, and the same bytes but in mixtral's
     decode: 16,384 fewer there, one ``cat`` that reassembled an
     all-gather along the second dim of an expert block which the new
-    form gathers along its first.  Each form counts in a process of its
-    own, in the same order: a process's first count of a cell reads
-    more bytes than a second one (ROADMAP queue 3)."""
-    now, before = run_script(MOE_FORMS, "egcd"), run_script(MOE_FORMS,
-                                                           "gecd")
+    form gathers along its first.  Both forms count in one process, the
+    new one first: a count no longer depends on what the process counted
+    before it (see ``test_a_cell_counted_twice_in_one_process_counts_the_
+    same``)."""
+    got = run_script(MOE_FORMS, "egcd", "gecd")
+    now, before = got["egcd"], got["gecd"]
     assert len(now) == 4
     for key, new in now.items():
         old = before[key]
@@ -590,12 +594,105 @@ def test_moe_expert_products_count_as_before():
         assert new["bytes"] == old["bytes"] - less, key
 
 
+#: Smoke chatglm3-6b cells (batch 8 on a (4, 2) mesh) counted one after
+#: the other in one process; argv: ``shape:seq`` of each count, in
+#: order.  DTensor's sharding propagation
+#: (``ShardingPropagator._propagate_tensor_meta_non_cached``) is spied
+#: on: every op the counter sees while it runs, and each that moved a
+#: count (FLOPs, bytes, local ops, live or peak bytes).
+COUNTS_IN_ORDER = r"""
+import dataclasses, json, sys
+from torch.distributed.tensor._sharding_prop import ShardingPropagator
+from repro_torch.configs.registry import SHAPES, get_config
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import make_mesh
+
+propagating, seen, counted = [0], [], []
+meta = ShardingPropagator._propagate_tensor_meta_non_cached
+dispatch = D.Counter.__torch_dispatch__
+
+def spied_meta(self, op_schema):
+    propagating[0] += 1
+    try:
+        return meta(self, op_schema)
+    finally:
+        propagating[0] -= 1
+
+def state(c):
+    return (c.flops, c.bytes_accessed, c.local_ops, c.live, c.peak)
+
+def spied_dispatch(self, func, types, args=(), kwargs=None):
+    before = state(self)
+    out = dispatch(self, func, types, args, kwargs)
+    if propagating[0]:
+        seen.append(str(func))
+        if state(self) != before:
+            counted.append(str(func))
+    return out
+
+ShardingPropagator._propagate_tensor_meta_non_cached = spied_meta
+D.Counter.__torch_dispatch__ = spied_dispatch
+D.fake_world(8)
+mesh = make_mesh((4, 2), ("data", "model"), device="fake")
+cfg = get_config("chatglm3-6b", smoke=True)
+counts = []
+for arg in sys.argv[1:]:
+    name, seq = arg.split(":")
+    shape = dataclasses.replace(SHAPES[name], seq_len=int(seq),
+                                global_batch=8)
+    counts.append(D.counts_json(D.count_cell(cfg, shape, mesh)))
+print(json.dumps({"counts": counts, "seen": seen, "counted": counted}))
+"""
+
+
+@pytest.fixture(scope="module")
+def train_twice():
+    """The smoke chatglm3-6b train cell counted twice in one fresh
+    process."""
+    return run_script(COUNTS_IN_ORDER, "train_4k:64", "train_4k:64")
+
+
+def test_a_cell_counted_twice_in_one_process_counts_the_same(train_twice):
+    """The second count of a cell in a process equals the first, field by
+    field (FLOPs, bytes, peak, argument and output bytes, DTensor and
+    local ops, comm counts, collectives by kind, issuing op and source).
+    The first once read 20,268,034 bytes and 1,916 local ops: three
+    casts DTensor runs at the global shape to derive an output's
+    metadata the first time it meets an op schema (the largest, 786,432
+    bytes, the whole global logits)."""
+    first, second = train_twice["counts"]
+    assert first == second
+    assert (first["flops"], first["bytes_accessed"], first["peak_bytes"],
+            first["local_ops"]) == (44564480, 19334146, 637720, 1913)
+    assert sum(n for n, _, _ in first["collectives"].values()) == 89
+
+
+def test_no_counted_op_comes_from_sharding_propagation(train_twice):
+    """Ops reach the counter while DTensor propagates shardings (fake
+    tensors at the global shape), and none of them moves a count."""
+    assert train_twice["seen"], "no propagation ran through the counter"
+    assert train_twice["counted"] == []
+
+
+def test_a_count_after_another_cell_equals_a_fresh_process_count(
+        train_twice):
+    """The train cell counted after a decode cell in one process equals
+    its count in a fresh process."""
+    got = run_script(COUNTS_IN_ORDER, "decode_32k:128", "train_4k:64")
+    assert got["counted"] == []
+    assert got["counts"][1] == train_twice["counts"][0]
+
+
 def test_full_depth_counts_equal_the_composition(dense_points):
     """The same cell at its full 2 layers: FLOPs equal ``compose`` of the
     depth-0 and depth-1 counts, as the reference composes its cost-mode
-    points.  Bytes agree within 5 %: with no layer, the embedding feeds
-    the head directly and DTensor moves the activations between other
-    layouts, a step the composition does not see."""
+    points.  Bytes agree within 5 %: the three points count one after
+    another in one process, and the composition reads 320 bytes more
+    than the full count of 15,361,698 (with no layer, the embedding
+    feeds the head directly, a step the composition does not see).
+    Before a count left out DTensor's sharding propagation, the depth-0
+    point, counted first, read 786,432 bytes more and the gap was
+    491,200 bytes (3.2 %)."""
     cfg = get_config("chatglm3-6b", smoke=True)
     pts = {d: rl.CostPoint(dense_points[d]["flops"], dense_points[d]["bytes"])
            for d in (0, 1)}

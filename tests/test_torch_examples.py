@@ -240,6 +240,41 @@ def test_run_all_cells_resumes(tmp_path, monkeypatch, capsys):
         (arch, "prefill_32k") for arch in P.ARCHS]
 
 
+def test_run_all_cells_runs_jobs_side_by_side_train_cells_first(
+        tmp_path, monkeypatch, capsys):
+    """``--jobs 3``: three cells run at once (each waits at a barrier of
+    three), train cells are queued first, then prefill, then decode, and
+    every cell's row lands in the file."""
+    import threading
+
+    from repro_torch.paper import run_all_cells as P
+
+    cells = P.pending([])
+    n = len(P.ARCHS)
+    assert [P.KIND[s] for _, s in cells] == \
+        ["train"] * n + ["prefill"] * n + ["decode"] * 2 * n
+    assert cells[:len(P.ARCHS)] == [(a, "train_4k") for a in P.ARCHS]
+    barrier = threading.Barrier(3, timeout=60)
+    started = []
+
+    def fake_cell(arch, shape, args):
+        started.append((arch, shape))
+        if len(started) <= 3:
+            barrier.wait()
+        return {"arch": arch, "shape": shape, "status": "skipped",
+                "reason": "stand-in"}
+
+    monkeypatch.setattr(P, "pud_preflight", lambda *a: None)
+    monkeypatch.setattr(P, "run_cell", fake_cell)
+    out = tmp_path / "cells.json"
+    assert P.main([str(out), "--jobs", "3"]) == 0
+    assert sorted(started) == sorted(cells)
+    rows = json.loads(out.read_text())
+    assert sorted((r["arch"], r["shape"]) for r in rows) == sorted(cells)
+    assert f"TOTAL: 0 ok, {len(cells)} skipped, 0 failed" in \
+        capsys.readouterr().out
+
+
 def test_run_all_cells_preflight_refuses_a_bad_backend():
     from repro_torch.paper import run_all_cells as P
 
