@@ -34,6 +34,9 @@ Phases, one JSON line each:
    nvcc (all sources at once) and print the card's name and power limit;
 2. kernels — each kernel against its plain PyTorch version on the card,
    at the shapes the main paths give it, bit-exact, with median times;
+   the fan-out at the five shapes of ``fanout_cases`` (the path's wave,
+   serve's erase level, the fused wipe, the kernel bench's, an
+   unaligned view) beside the fastest one-call PyTorch form of the copy;
    the megakernel at add32 and at the largest §8.1 lowerings (mul at
    tier 5 over 2**18 words, div at MAJ3 over 2048), in the regime its
    planner picks and, where it fits, the other one, also held to the
@@ -162,6 +165,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import dataclasses
+import functools
 import glob
 import io
 import json
@@ -229,6 +233,31 @@ class Timer:
             end.synchronize()
             times.append(start.elapsed_time(end))
         return statistics.median(times)
+
+
+def device_ms(torch, timer, fn, reps: int = 15):
+    """Mean device time (ms) of one call of ``fn``, kernels only: a
+    ``torch.profiler`` trace over ``reps`` calls, each after the Timer's
+    L2 flush, whose fill kernel is left out.  Unlike the Timer's span it
+    holds no launch or event time.  None where the trace shows no
+    device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            timer.flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and "Fill" not in e.key and "Memset" not in e.key)
+    return us / reps / 1e3 if us else None
 
 
 def max_abs_err(torch, got, want) -> int:
@@ -325,6 +354,49 @@ def megakernel_case(torch, record, key, timer, low, state,
                                           "levels", "kept_slots")}})
 
 
+def fanout_cases() -> dict:
+    """The fan-out kernel's shapes in phase ``kernels``: key -> (fanout,
+    source shape, words sliced off the front of the source's storage)."""
+    return {
+        # mrc_fanout31 on the path: one wave of 31 rows at full width
+        "fanout[31]": (31, (WORDS,), 0),
+        # serve's coalesced erase level: SERVE_N requests of one wave
+        "fanout[31, serve tick]": (31, (SERVE_N, WORDS), 0),
+        # erase_mrc31 fused: 64 waves of one rank row
+        "fanout[31, erase rows]": (31, (64, RANK_WORDS), 0),
+        # paper/kernel_bench.py's fan-out row
+        "fanout[31, bench]": (31, (8, 4096), 0),
+        # x[1:]: a view that starts 4 bytes into its storage
+        "fanout[7, unaligned]": (7, (WORDS,), 1),
+    }
+
+
+def fanout_source(rng, shape, offset: int):
+    """Random words of ``shape`` on the card, ``offset`` words into
+    their storage (an unaligned view where ``offset`` is not a multiple
+    of 4)."""
+    from repro_torch.core.bitplanes import from_u32
+
+    n = int(np.prod(shape))
+    flat = from_u32(rng.integers(0, 2**32, offset + n, dtype=np.uint32),
+                    DEVICE)
+    return flat[offset:].view(shape)
+
+
+def fanout_library_forms(torch, src, n: int) -> dict:
+    """The one-call PyTorch forms of ``fanout(src, n)``: name -> call.
+    Yardsticks only: the port calls none of them."""
+    out = torch.empty((n, *src.shape), dtype=src.dtype, device=src.device)
+    return {
+        "torch.stack([src] * n)": lambda: torch.stack([src] * n),
+        "src.repeat(n, ...)": lambda: src.repeat(n, *[1] * src.dim()),
+        "src.unsqueeze(0).expand(n, ...).contiguous()":
+            lambda: src.unsqueeze(0).expand(n, *src.shape).contiguous(),
+        "out.copy_(src.expand(...))":
+            lambda: out.copy_(src.expand(n, *src.shape)),
+    }
+
+
 def phase_build(launch) -> str:
     t0 = time.perf_counter()
     seconds = launch.build_all()
@@ -364,9 +436,12 @@ def phase_kernels(torch, timer) -> dict:
     rows = {}
 
     def record(name, key, kernel_fn, plain_fn, n_bytes, n_ops, shape,
-               library_fn=None, reps=15, oracle=None, extra=None):
+               library=None, reps=15, oracle=None, extra=None):
         """``oracle(got)`` returns a further max_abs_err of the kernel's
-        output against an independent reference."""
+        output against an independent reference.  ``library`` maps the
+        name of each one-call PyTorch form of the same function to the
+        call: each must equal the plain version, each is timed, and the
+        fastest is the row's ``library_ms`` / ``library_call``."""
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         err = max_abs_err(torch, got, want)
@@ -374,13 +449,17 @@ def phase_kernels(torch, timer) -> dict:
             err = max(err, oracle(got))
         check(got.shape == want.shape and err == 0,
               f"{key}: kernel disagrees with its plain version")
+        for call, fn in (library or {}).items():
+            check(torch.equal(fn(), want), f"{key}: {call} disagrees")
         del got, want
         b_ms, b_by = bound(n_bytes, n_ops)
+        lib = {call: timer(fn) for call, fn in (library or {}).items()}
+        best = min(lib, key=lib.get) if lib else None
         row = {"name": name, "shape": shape, "max_abs_err": err,
                "ms": timer(kernel_fn, reps=reps),
                "plain_ms": timer(plain_fn, reps=min(reps, 5)),
                "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": timer(library_fn) if library_fn else None,
+               "library_ms": lib.get(best), "library_call": best,
                **(extra or {})}
         emit({"phase": "kernels", "case": key, **row})
         rows[key] = row
@@ -395,12 +474,20 @@ def phase_kernels(torch, timer) -> dict:
                (x + 1) * b * WORDS * 4, b * WORDS * vote_ops(x),
                [x, b, WORDS])
 
-    # Fan-out: one Multi-RowCopy wave of 31 destinations at full width.
-    src = words(WORDS)
-    record("fanout", "fanout[31]", lambda: rowcopy_ops.fanout(src, 31),
-           lambda: rowcopy_ops.fanout_ref(src, 31), 32 * WORDS * 4, 0,
-           [31, WORDS], library_fn=lambda: src.unsqueeze(0)
-           .expand(31, WORDS).contiguous())
+    # Fan-out at the shapes its callers give it (fanout_cases), each
+    # beside the fastest one-call PyTorch form of the same copy, and the
+    # kernel's and the plain version's device time from a profile.
+    for key, (n, shape, offset) in fanout_cases().items():
+        src = fanout_source(rng, shape, offset)
+        kernel_fn = functools.partial(rowcopy_ops.fanout, src, n)
+        plain_fn = functools.partial(rowcopy_ops.fanout_ref, src, n)
+        record("fanout", key, kernel_fn, plain_fn,
+               (1 + n) * src.numel() * 4, 0, [n, *shape],
+               library=fanout_library_forms(torch, src, n),
+               extra={"offset_words": offset,
+                      "device_ms": device_ms(torch, timer, kernel_fn),
+                      "plain_device_ms": device_ms(torch, timer, plain_fn)})
+        del src, kernel_fn, plain_fn
 
     # Megakernel: the add32 lowering on its 161-row image at full width,
     # then the largest §8.1 lowerings, mul at tier 5 over one bank and
@@ -481,17 +568,19 @@ def phase_launch_overhead(torch) -> dict:
     out = torch.empty(1, dtype=torch.int32, device="cuda")
     fn = launch.kernel("fanout", "fanout_launch", rowcopy_ops._ARGS)
     stream = launch.VOID_P(torch.cuda.current_stream().cuda_stream)
+    # src, out, fanout 1, 1 word, the 4-byte path, a window of 1 chunk,
+    # 1 window, 32 threads
+    args = (src.data_ptr(), out.data_ptr(), 1, 1, 0, 1, 1, 32)
 
     def launch_run():
         launch.run(launch.kernel("fanout", "fanout_launch",
                                  rowcopy_ops._ARGS), "fanout", src.device,
-                   src.data_ptr(), out.data_ptr(), 1, 1, 1, 32)
+                   *args)
 
     ways = {
         "wrapper": lambda: rowcopy_ops.fanout(src, 1),
         "launch_run": launch_run,
-        "ctypes": lambda: fn(src.data_ptr(), out.data_ptr(), 1, 1, 1, 32,
-                             stream),
+        "ctypes": lambda: fn(*args, stream),
     }
     n = 2000
     ns = {}
@@ -3716,6 +3805,7 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "library_call": row["library_call"],
             "shape": row["shape"]})
     print(smi, flush=True)
     emit({"kernels": kernels})

@@ -98,14 +98,56 @@ def test_vote_kernel_matches_plain(cuda_device, dtype):
     assert torch.equal(got.cpu().view(torch.uint8), want.view(torch.uint8))
 
 
+def _fanout_cases():
+    """(fan-out, source shape, words sliced off the source's front): the
+    CPU twin's cases, the unaligned view and serve's erase level."""
+    cases = [pytest.param(fan, (3, 1001), 0, id=str(fan))
+             for fan in (1, 7, 15, 31)]
+    for words in (1, 3, 5, 4097):
+        for lead in ((), (2,), (2, 3)):
+            for fan in (0, 1, 31, 63):
+                cases.append(pytest.param(
+                    fan, (*lead, words), 0,
+                    id=f"w{words}-{len(lead) + 1}d-f{fan}"))
+    for words, fan in ((4096, 7), (4097, 31), (3, 63)):
+        cases.append(pytest.param(fan, (words,), 1,
+                                  id=f"w{words}-sliced-f{fan}"))
+    cases += [
+        pytest.param(31, (4, 1024), 1024, id="w1024-2d-rows1-f31"),
+        pytest.param(7, (2**18,), 1, id="unaligned-2e18-f7"),
+        pytest.param(31, (16, 2**18), 0, id="serve-tick-16x2e18-f31"),
+        pytest.param(31, (64, 2048), 0, id="erase-rows-64x2048-f31"),
+    ]
+    return cases
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("fan", [1, 7, 15, 31])
-def test_fanout_kernel_matches_plain(cuda_device, fan):
-    src = _words(fan, 3, 1001, device=cuda_device)
+@pytest.mark.parametrize("fan,shape,offset", _fanout_cases())
+def test_fanout_kernel_matches_plain(cuda_device, fan, shape, offset):
+    """Each case is one launch, bit-exact: the 16-byte path (aligned,
+    words a multiple of 4) and the 4-byte one (ragged rows, views that
+    start a word into their storage).  A fan-out of 0 launches nothing."""
+    n = int(np.prod(shape))
+    src = _words([fan, offset, *shape], offset + n,
+                 device=cuda_device)[offset:].view(shape)
+    before = rowcopy_ops.launches
+    got = rowcopy_ops.fanout(src, fan)
+    assert rowcopy_ops.launches == before + (1 if fan else 0)
+    assert torch.equal(got, rowcopy_ops.fanout_ref(src, fan))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("words", [4, 1], ids=["16-byte", "4-byte"])
+def test_fanout_kernel_takes_its_largest_fanout(cuda_device, words):
+    """``MAX_FANOUT`` destinations (65535 groups of 4 on the 16-byte
+    path, the most grid y holds): one launch, every destination
+    written."""
+    fan = rowcopy_ops.MAX_FANOUT
+    src = _words([words, fan], words, device=cuda_device)
     before = rowcopy_ops.launches
     got = rowcopy_ops.fanout(src, fan)
     assert rowcopy_ops.launches == before + 1
-    assert torch.equal(got, rowcopy_ops.fanout_ref(src, fan))
+    assert torch.equal(got, src.expand(fan, words))
 
 
 @pytest.mark.cuda

@@ -86,17 +86,145 @@ def test_vote_matches_pallas(dtype):
     assert torch.equal(got.view(torch.uint8), reps[0].view(torch.uint8))
 
 
-@pytest.mark.parametrize("fan", [1, 7, 15, 31])
-def test_fanout_matches_pallas(fan):
-    rng = np.random.default_rng(fan)
-    src = rand_u32(rng, 3, 45)
-    got = rowcopy_ops.fanout(_t(src), fan)
-    want = ref_rowcopy.fanout(jnp.asarray(src), fan)
-    assert got.shape == (fan, 3, 45)
-    assert (bp.to_u32(got) == np.asarray(want)).all()
-    row = rowcopy_ops.fanout(_t(src[0]), fan)
-    assert (bp.to_u32(row) == np.asarray(
-        ref_rowcopy.fanout(jnp.asarray(src[0]), fan))).all()
+def _fanout_cases():
+    """(fan-out, source shape, words sliced off the source's front)."""
+    cases = [pytest.param(fan, (3, 45), 0, id=str(fan))
+             for fan in (1, 7, 15, 31)]
+    for words in (1, 3, 5, 4097):
+        for lead in ((), (2,), (2, 3)):
+            for fan in (0, 1, 31, 63):
+                cases.append(pytest.param(
+                    fan, (*lead, words), 0,
+                    id=f"w{words}-{len(lead) + 1}d-f{fan}"))
+    for words, fan in ((4096, 7), (4097, 31), (3, 63)):
+        cases.append(pytest.param(fan, (words,), 1,
+                                  id=f"w{words}-sliced-f{fan}"))
+    cases.append(pytest.param(31, (4, 1024), 1024, id="w1024-2d-rows1-f31"))
+    return cases
+
+
+def _ref_fanout(src: np.ndarray, fan: int) -> np.ndarray:
+    """The reference's fan-out: its Pallas wrapper (interpret mode), which
+    takes (R, C) or (C,), on the source's rows; its jnp ``fanout_ref``
+    for a fan-out of 0, which the Pallas wrapper refuses."""
+    if fan == 0:
+        return np.asarray(ref_rowcopy.fanout_ref(jnp.asarray(src), 0))
+    rows = src.reshape(-1, src.shape[-1]) if src.ndim > 2 else src
+    out = ref_rowcopy.fanout(jnp.asarray(rows), fan)
+    return np.asarray(out).reshape(fan, *src.shape)
+
+
+@pytest.mark.parametrize("fan,shape,offset", _fanout_cases())
+def test_fanout_matches_pallas(fan, shape, offset):
+    """1-, 2- and 3-D sources of 1 to 4097 words a row, fan-outs 0 to 63,
+    and views that start ``offset`` words into their storage (the card
+    takes its 4-byte path for those)."""
+    rng = np.random.default_rng([fan, offset, *shape])
+    flat = rand_u32(rng, offset + int(np.prod(shape)))
+    src = _t(flat)[offset:].view(shape)
+    got = rowcopy_ops.fanout(src, fan)
+    assert got.shape == (fan, *shape)
+    assert (bp.to_u32(got) == _ref_fanout(flat[offset:].reshape(shape),
+                                          fan)).all()
+
+
+@pytest.mark.parametrize("words,src_off,out_off,threads,want", [
+    (2**18, 0, 0, 256, (True, 256, 1)),
+    (16 * 2**18, 0, 0, 256, (True, 256, 16)),
+    (64 * 2048, 0, 0, 256, (True, 128, 1)),
+    (8 * 4096, 0, 0, 128, (True, 64, 1)),
+    (2**18, 4, 0, 256, (False, 256, 4)),
+    (2**18, 0, 8, 1024, (False, 64, 4)),
+    (4097, 0, 0, 256, (False, 17, 1)),
+    (1, 0, 0, 32, (False, 1, 1)),
+    (0, 0, 0, 256, (True, 1, 1)),
+    (2**40, 0, 0, 1024, (True, 64, 65535)),
+], ids=["path", "serve", "erase-rows", "bench", "src-unaligned",
+        "out-unaligned", "ragged", "one-word", "empty", "capped"])
+def test_fanout_geometry(words, src_off, out_off, threads, want):
+    """The 16-byte path needs a multiple of 4 words and both pointers
+    16-byte aligned; a window is ``WINDOW_COLS`` columns of chunks of
+    ``threads`` (fewer where the source is smaller), and the windows
+    cover the rest, capped at CUDA's grid-z limit."""
+    base = 1 << 20
+    vec, window, windows = rowcopy_ops.geometry(
+        words, base + src_off, base + out_off, threads)
+    assert (vec, window, windows) == want
+    cols = words // 4 if vec else words
+    assert window * threads <= max(rowcopy_ops.WINDOW_COLS, threads)
+    if windows < rowcopy_ops.MAX_WINDOWS:
+        assert window * windows * threads >= cols
+
+
+@pytest.mark.parametrize("threads", [0, 16, 33, 2048])
+def test_fanout_geometry_refuses_bad_threads(threads):
+    with pytest.raises(ValueError, match="threads per block"):
+        rowcopy_ops.geometry(64, 0, 0, threads)
+
+
+@pytest.mark.parametrize("offset,vec", [(0, 1), (1, 0), (4, 1)],
+                         ids=["aligned", "sliced", "sliced-by-4"])
+def test_fanout_wrapper_passes_its_geometry(offset, vec, monkeypatch):
+    """With the launch recorded, the wrapper passes ``geometry``'s
+    answer for the tensors it was given: a view one word into its
+    storage takes the 4-byte path."""
+    from repro_torch.kernels import launch
+
+    calls = []
+    monkeypatch.setattr(launch, "on_cpu", lambda t: False)
+    monkeypatch.setattr(launch, "kernel", lambda *a: None)
+    monkeypatch.setattr(launch, "run",
+                        lambda f, what, dev, *args: calls.append(args))
+    src = torch.zeros(offset + 4096, dtype=torch.int32)[offset:]
+    assert src.data_ptr() % 16 == 4 * offset % 16
+    before = rowcopy_ops.launches
+    out = rowcopy_ops.fanout(src, 31, threads=128)
+    assert rowcopy_ops.launches == before + 1
+    ((s, o, fan, words, got_vec, window, windows, threads),) = calls
+    assert (s, o, fan, words, threads) == (src.data_ptr(), out.data_ptr(),
+                                           31, 4096, 128)
+    assert (got_vec, window, windows) == ((1, 8, 1) if vec else (0, 32, 1))
+
+
+@pytest.mark.parametrize("fan,shape", [(0, (4096,)), (31, (0,)),
+                                       (7, (3, 0))],
+                         ids=["fanout-0", "empty-row", "empty-rows"])
+def test_fanout_wrapper_launches_nothing_for_an_empty_output(
+        fan, shape, monkeypatch):
+    """With the launch recorded, an output with no words returns at its
+    shape without a launch and without counting one."""
+    from repro_torch.kernels import launch
+
+    calls = []
+    monkeypatch.setattr(launch, "on_cpu", lambda t: False)
+    monkeypatch.setattr(launch, "kernel", lambda *a: None)
+    monkeypatch.setattr(launch, "run",
+                        lambda f, what, dev, *args: calls.append(args))
+    before = rowcopy_ops.launches
+    out = rowcopy_ops.fanout(torch.zeros(shape, dtype=torch.int32), fan)
+    assert out.shape == (fan, *shape) and out.dtype == torch.int32
+    assert calls == [] and rowcopy_ops.launches == before
+
+
+def test_fanout_wrapper_refuses_more_than_the_grid_holds(monkeypatch):
+    """Past ``MAX_FANOUT`` a card's tensor raises before any launch; the
+    CPU's plain version still takes it."""
+    from repro_torch.kernels import launch
+
+    src = torch.arange(4, dtype=torch.int32)
+    fan = rowcopy_ops.MAX_FANOUT + 1
+    assert rowcopy_ops.fanout(src, fan).shape == (fan, 4)
+    calls = []
+    monkeypatch.setattr(launch, "on_cpu", lambda t: False)
+    monkeypatch.setattr(launch, "kernel", lambda *a: None)
+    monkeypatch.setattr(launch, "run",
+                        lambda f, what, dev, *args: calls.append(args))
+    before = rowcopy_ops.launches
+    with pytest.raises(ValueError, match="fanout must be <= 262140"):
+        rowcopy_ops.fanout(src, fan)
+    assert calls == [] and rowcopy_ops.launches == before
+    rowcopy_ops.fanout(src, rowcopy_ops.MAX_FANOUT)
+    assert len(calls) == 1
 
 
 def _lowering_cases():
