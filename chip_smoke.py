@@ -235,13 +235,24 @@ class Timer:
         return statistics.median(times)
 
 
+def device_entries(prof) -> list:
+    """The device's kernels, copies and memsets in ``prof.key_averages()``:
+    a ``record_function`` range (the port's :mod:`repro_torch.obs` spans
+    among them) also shows on the device's timeline, as an annotation
+    over the work launched inside it, and is left out."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def device_ms(torch, timer, fn, reps: int = 15):
     """Mean device time (ms) of one call of ``fn``, kernels only: a
     ``torch.profiler`` trace over ``reps`` calls, each after the Timer's
     L2 flush, whose fill kernel is left out.  Unlike the Timer's span it
     holds no launch or event time.  None where the trace shows no
     device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -254,9 +265,8 @@ def device_ms(torch, timer, fn, reps: int = 15):
         torch.cuda.synchronize()
     us = sum(getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0))
-             for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
-             and "Fill" not in e.key and "Memset" not in e.key)
+             for e in device_entries(prof)
+             if "Fill" not in e.key and "Memset" not in e.key)
     return us / reps / 1e3 if us else None
 
 
@@ -1384,7 +1394,6 @@ def serve_profile(torch, make) -> None:
     (one stream: they do not overlap) over the round's wall, which the
     profiler itself lengthens.  Printed as not measured (null) when the
     trace holds no device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     svc = new_service(pool_size=2, max_batch=3 * SERVE_N,
@@ -1397,9 +1406,7 @@ def serve_profile(torch, make) -> None:
         _sync(torch)
         wall = time.perf_counter() - t0
     device_us = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
+    for e in device_entries(prof):
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0))
         device_us[e.key[:80]] = (us, e.count)
@@ -1842,9 +1849,7 @@ def sweep_profile(torch, fig6, fig7) -> None:
             _sync(torch)
             wall = time.perf_counter() - t0
         busy_us, kernels = 0.0, 0
-        for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA or e.key in SWEEP_RANGES:
-                continue
+        for e in device_entries(prof):
             busy_us += device_us(e, "self_")
             kernels += e.count
         out[tag] = {"points": len(chunk.points), "rows": spec.rows,
@@ -2351,7 +2356,6 @@ def profile_call(torch, fn) -> dict:
     ``torch.profiler`` trace: device time of every kernel and copy, one
     stream, over the call's wall), its device ops and its six longest
     kernels."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     _sync(torch)
@@ -2362,13 +2366,12 @@ def profile_call(torch, fn) -> dict:
         _sync(torch)
         wall = time.perf_counter() - t0
     busy, n_ops, kernels = 0.0, 0, []
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            t = getattr(e, "self_device_time_total",
-                        getattr(e, "self_cuda_time_total", 0)) / 1e6
-            busy += t
-            n_ops += e.count
-            kernels.append((t, e.count, e.key[:80]))
+    for e in device_entries(prof):
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0)) / 1e6
+        busy += t
+        n_ops += e.count
+        kernels.append((t, e.count, e.key[:80]))
     return {"profiled_step_s": wall, "device_busy_s": busy or None,
             "device_busy_share": busy / wall if busy else None,
             "device_ops": n_ops,

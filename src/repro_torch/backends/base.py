@@ -35,6 +35,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.backends.context import ExecutionContext
 from repro_torch.core import bitplanes as bp
 from repro_torch.pud.isa import Program
@@ -169,9 +170,16 @@ class Backend(abc.ABC):
                              f"runs on {self.device}")
         return x
 
+    def _upload(self, array, dtype) -> torch.Tensor:
+        """``array`` as a ``dtype`` tensor on the device, built on the
+        host: one copy from pageable memory, counted in
+        ``backend.index_uploads`` (:mod:`repro_torch.obs`)."""
+        obs.count("backend.index_uploads")
+        return torch.as_tensor(np.asarray(array, dtype), device=self.device)
+
     def _index(self, rows) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(rows, np.int64),
-                               device=self.device)
+        """Row indices as an int64 tensor on the device."""
+        return self._upload(rows, np.int64)
 
     # ------------------------------------------------------------ protocol
     @abc.abstractmethod

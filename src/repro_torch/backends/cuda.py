@@ -35,6 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.backends.base import Backend, Capabilities
 from repro_torch.compile.megakernel import lower_schedule
 from repro_torch.compile.schedule import build_schedule
@@ -140,20 +141,25 @@ class CudaBackend(Backend):
 
         ``mode="megakernel"`` routes to :meth:`run_megakernel` — the
         whole schedule in one launch.
+
+        Either mode is the span ``cuda.run_fused``; the fused mode
+        counts its levels in ``cuda.levels`` (:mod:`repro_torch.obs`).
         """
-        if mode == "megakernel":
-            return self.run_megakernel(program, state, sched=sched,
-                                       lowering=lowering)
-        if mode != "fused":
-            raise ValueError(f"unknown run_fused mode {mode!r}")
-        if sched is None:
-            sched = build_schedule(program)
-        state = self.words(state).clone()
-        for level in sched.levels:
-            writes = [self._exec_group(group, state) for group in level]
-            for dsts, vals in writes:
-                state[dsts] = vals
-        return state
+        with obs.span("cuda.run_fused"):
+            if mode == "megakernel":
+                return self.run_megakernel(program, state, sched=sched,
+                                           lowering=lowering)
+            if mode != "fused":
+                raise ValueError(f"unknown run_fused mode {mode!r}")
+            if sched is None:
+                sched = build_schedule(program)
+            obs.count("cuda.levels", len(sched.levels))
+            state = self.words(state).clone()
+            for level in sched.levels:
+                writes = [self._exec_group(group, state) for group in level]
+                for dsts, vals in writes:
+                    state[dsts] = vals
+            return state
 
     def run_megakernel(self, program: Program, state, *, sched=None,
                        lowering=None) -> torch.Tensor:
@@ -219,8 +225,8 @@ class CudaBackend(Backend):
             ones[k + pad:, i] = True
         batch = entry[self._index(idx)]                  # (X, B, W)
         if pads.any():
-            batch[torch.as_tensor(pads, device=self.device)] = 0
-            batch[torch.as_tensor(ones, device=self.device)] = bp.ONES
+            batch[self._upload(pads, bool)] = 0
+            batch[self._upload(ones, bool)] = bp.ONES
         out = self.majx(batch)                           # (B, W), 1 launch
         dsts = self._index([d for op in group.ops for d in op.dsts])
         sel = self._index([i for i, op in enumerate(group.ops)

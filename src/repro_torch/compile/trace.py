@@ -34,6 +34,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import bitplanes as bp
 from repro_torch.pud.arith import BitSerial, build_op, elements
 from repro_torch.pud.isa import Program
@@ -147,6 +148,7 @@ class CompiledProgram:
         :func:`bitplanes.pack_uint_elements`)."""
         if isinstance(final_state, np.ndarray):
             final_state = bp.from_u32(final_state, "cpu")
+        obs.count("backend.index_uploads")
         rows = torch.as_tensor(self.out_rows, dtype=torch.int64,
                                device=final_state.device)
         return bp.unpack_uint_elements(final_state[rows], self.n_lanes)

@@ -23,6 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import obs
+
 WORD_BITS = 32
 #: All-ones word as stored (the int32 bit pattern of ``0xFFFFFFFF``).
 ONES = -1
@@ -233,19 +235,21 @@ def pack_uint_elements(x: torch.Tensor, n_bits: int = 32) -> torch.Tensor:
     temporaries are about the size of the input; planes past the 32nd
     are zero.
     """
-    x = torch.as_tensor(x)
-    if x.dtype != torch.int32:
-        x = wrap_i32(x.to(torch.int64) & 0xFFFFFFFF)
-    pad = n_words(x.shape[-1]) * WORD_BITS - x.shape[-1]
-    if pad:
-        x = torch.nn.functional.pad(x, (0, pad))
-    lanes = x.reshape(*x.shape[:-1], -1, WORD_BITS)
-    shifts = torch.arange(WORD_BITS, dtype=torch.int32, device=x.device)
-    # Disjoint bits: the int32 sum of a word's lanes is their OR.
-    planes = [(((lanes >> i) & 1) << shifts).sum(-1, dtype=torch.int32)
-              if i < WORD_BITS else lanes.new_zeros(lanes.shape[:-1])
-              for i in range(n_bits)]
-    return torch.stack(planes, dim=-2)
+    with obs.span("bitplanes.pack"):
+        x = torch.as_tensor(x)
+        if x.dtype != torch.int32:
+            x = wrap_i32(x.to(torch.int64) & 0xFFFFFFFF)
+        pad = n_words(x.shape[-1]) * WORD_BITS - x.shape[-1]
+        if pad:
+            x = torch.nn.functional.pad(x, (0, pad))
+        lanes = x.reshape(*x.shape[:-1], -1, WORD_BITS)
+        shifts = torch.arange(WORD_BITS, dtype=torch.int32,
+                              device=x.device)
+        # Disjoint bits: the int32 sum of a word's lanes is their OR.
+        planes = [(((lanes >> i) & 1) << shifts).sum(-1, dtype=torch.int32)
+                  if i < WORD_BITS else lanes.new_zeros(lanes.shape[:-1])
+                  for i in range(n_bits)]
+        return torch.stack(planes, dim=-2)
 
 
 def unpack_uint_elements(planes: torch.Tensor, k: int) -> torch.Tensor:
@@ -254,11 +258,13 @@ def unpack_uint_elements(planes: torch.Tensor, k: int) -> torch.Tensor:
     Each element holds the ``uint32`` bit pattern of the value; planes
     past the 32nd carry no bit of it.  One plane is unpacked at a time.
     """
-    out = planes.new_zeros((*planes.shape[:-2], k))
-    for i in range(min(planes.shape[-2], WORD_BITS)):
-        bits = _word_bits(planes[..., i, :]).reshape(*planes.shape[:-2], -1)
-        out |= bits[..., :k] << i
-    return out
+    with obs.span("bitplanes.unpack"):
+        out = planes.new_zeros((*planes.shape[:-2], k))
+        for i in range(min(planes.shape[-2], WORD_BITS)):
+            bits = _word_bits(planes[..., i, :]).reshape(
+                *planes.shape[:-2], -1)
+            out |= bits[..., :k] << i
+        return out
 
 
 def bitcast_to_planes(x: torch.Tensor

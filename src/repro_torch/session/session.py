@@ -34,6 +34,7 @@ from typing import Optional, Sequence, Union
 
 import torch
 
+from repro_torch import obs
 from repro_torch.backends import Backend, ExecutionContext, resolve_backend
 from repro_torch.compile.schedule import Schedule
 from repro_torch.pud.isa import Program
@@ -117,22 +118,26 @@ class DramSession:
         one analysis per program content, raising
         :class:`~repro_torch.analyze.cert.CertificationError` if the compiled
         schedule or level tables ever diverge from program dataflow.
+
+        The whole call is the span ``session.run_fused``
+        (:mod:`repro_torch.obs`); the backend's own span is its child.
         """
-        key = program_key(program)
-        self._validate(program, state, key)
-        sched = self.cache.schedule_for(program, key=key)
-        lowering = None
-        if mode == "megakernel" and self.capabilities().megakernel:
-            lowering = self.cache.lowering_for(program, key=key,
-                                               sched=sched)
-        if self.ctx.certify:
-            # Static race/liveness/equivalence certification of the
-            # exact artifacts about to execute; content-cached, so a
-            # repeated program is a dictionary hit, not a re-analysis.
-            self.cache.certificate_for(program, key=key, sched=sched,
-                                       lowering=lowering)
-        return self.backend.run_fused(program, state, sched=sched,
-                                      mode=mode, lowering=lowering)
+        with obs.span("session.run_fused"):
+            key = program_key(program)
+            self._validate(program, state, key)
+            sched = self.cache.schedule_for(program, key=key)
+            lowering = None
+            if mode == "megakernel" and self.capabilities().megakernel:
+                lowering = self.cache.lowering_for(program, key=key,
+                                                   sched=sched)
+            if self.ctx.certify:
+                # Static race/liveness/equivalence certification of the
+                # exact artifacts about to execute; content-cached, so a
+                # repeated program is a dictionary hit, not a re-analysis.
+                self.cache.certificate_for(program, key=key, sched=sched,
+                                           lowering=lowering)
+            return self.backend.run_fused(program, state, sched=sched,
+                                          mode=mode, lowering=lowering)
 
     # --------------------------------------------- §8.1 compiled arithmetic
     def elementwise(self, op: str, a, b, tier: Optional[int] = None,

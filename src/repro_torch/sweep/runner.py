@@ -44,8 +44,8 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from repro_torch import obs
 from repro_torch.backends import ExecutionContext, Timings
 from repro_torch.core import bitplanes as bp
 from repro_torch.core.errormodel import ErrorModel
@@ -233,20 +233,21 @@ class _Executor:
         Under a device mesh the stacked batch instead goes through
         ``majx_batch``, one launch for each distinct shard of the B grid
         points over the mesh's data axis, each on its device.
-        Its steps are ``torch.profiler`` ranges (``sweep.draws``,
+        Its steps are :mod:`repro_torch.obs` spans (``sweep.draws``,
         ``sweep.upload``, ``sweep.fused_run``, ``sweep.oracle``,
-        ``sweep.counts``) that a trace of the chunk splits its time by.
+        ``sweep.counts``), which a profiled chunk's trace splits its
+        time by.
         """
         pts = chunk.points
         rows, words = self.spec.rows, self.spec.words
-        with record_function("sweep.draws"):
+        with obs.span("sweep.draws"):
             batch = np.stack([
                 _planes(p.pattern, (p.x, rows, words),
                         _rng(self.spec, p)) for p in pts])  # (B, X, R, C)
         sess = self.session(pts[0])
-        with record_function("sweep.upload"):
+        with obs.span("sweep.upload"):
             data = bp.from_u32(batch, self.device)
-        with record_function("sweep.fused_run"):
+        with obs.span("sweep.fused_run"):
             if self.mesh is not None:
                 placed = sharding_for(data.shape, ("batch", None, None, None),
                                       self.mesh).shards(data)
@@ -259,10 +260,10 @@ class _Executor:
                 final = sess.run_fused(prog, state)
                 got = final[out_base:].reshape(len(pts), rows, words)
         # Same reference source as the per-point path: the oracle backend.
-        with record_function("sweep.oracle"):
+        with obs.span("sweep.oracle"):
             want = self._oracle.majx_batch(data)
         out = []
-        with record_function("sweep.counts"):
+        with obs.span("sweep.counts"):
             for i, p in enumerate(pts):
                 success, n_bits = _success(got[i], want[i], sess.mismatch)
                 out.append(dict(p.record_base(), success=success,

@@ -850,3 +850,37 @@ def test_train_steps_on_the_card_match_the_cpu(cuda_device, tmp_path):
     assert majx_ops.launches == before + len(leaves)
     for a, b in zip(tree_util.flatten(voted)[0], leaves):
         assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,uploads", [("fused", 226), ("megakernel", 0)])
+def test_index_uploads_are_host_waits(cuda_device, mode, uploads):
+    """Each ``backend.index_uploads`` is a pageable host->device copy,
+    which waits on the stream: under sync debug mode ``warn`` one fused
+    add32 (tier 5, n_act 32, 2048 words) and its ``outputs`` warn once
+    for each, and for nothing else."""
+    import warnings
+
+    from repro_torch import obs
+    from repro_torch.compile import compile_elementwise
+
+    rng = np.random.default_rng(26)
+    a, b = rng.integers(0, 2**32, (2, 2048 * 32), dtype=np.uint32)
+    cp = compile_elementwise("add", a, b, tier=5, n_act=32)
+    backend = get_backend("cuda", ExecutionContext(device="cuda"))
+    state = bp.from_u32(cp.state, cuda_device)
+    backend.run_fused(cp.program, state, mode=mode)     # build, warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught, \
+                obs.recording() as rec:
+            warnings.simplefilter("always")
+            got = cp.outputs(backend.run_fused(cp.program, state,
+                                               mode=mode))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    waits = [w for w in caught if "synchroniz" in str(w.message)]
+    assert rec.counters["backend.index_uploads"] == uploads + 1
+    assert len(waits) == uploads + 1
+    assert (bp.to_u32(got) == a + b).all()
