@@ -40,7 +40,8 @@ Phases, one JSON line each:
    the megakernel at add32 and at the largest §8.1 lowerings (mul at
    tier 5 over 2**18 words, div at MAJ3 over 2048), in the regime its
    planner picks and, where it fits, the other one, also held to the
-   padded tables' walk;
+   padded tables' walk; the bit-plane transpose (pack and unpack) at
+   the arith cells' 2**26 lanes;
 3. path — the ``add32``, ``maj9_tree`` and ``mrc_fanout31`` golden
    Programs at 2**18 words a row (one DDR4 bank: 128 subarrays of one
    8 KiB rank row), plus the full ``erase_mrc31`` Multi-RowCopy wipe,
@@ -149,7 +150,9 @@ Phases, one JSON line each:
    :data:`PAPER_ROWS`, which ``tests/test_torch_paper.py`` holds to the
    reference's output; then the five examples' ``main`` on the card
    (``train_tiny_lm`` cut to 12 steps of its small config);
-14. the kernels line, then ``{"ok": true, ...}`` as the last line.
+14. the kernels line (the transpose's launches tallied a phase at a
+   time: the backend's dispatches do not count them), then
+   ``{"ok": true, ...}`` as the last line.
 
 Every kernel's launch count is zeroed just before phases 3-13 and read
 just after each: the launches must add up to the backend's dispatches
@@ -432,6 +435,7 @@ def phase_kernels(torch, timer) -> dict:
     from repro_torch.core import bitplanes as bp
     from repro_torch.core.bitplanes import from_u32
     from repro_torch.interop import program_from_json
+    from repro_torch.kernels.bitplanes import ops as bitplanes_ops
     from repro_torch.kernels.bitserial import ops as bitserial_ops
     from repro_torch.kernels.majx import ops as majx_ops
     from repro_torch.kernels.mismatch import ops as mismatch_ops
@@ -562,6 +566,27 @@ def phase_kernels(torch, timer) -> dict:
         record("bitserial", key, lambda a=a, b=b: bitserial_ops.bitserial_add(
             a, b), lambda a=a, b=b: bitserial_ops.bitserial_add_ref(a, b),
             3 * n * 4, 6 * n, list(shape))
+
+    # Bit-plane transpose at the arith cells' request: 2**26 uint32
+    # elements into 32 planes of 2**21 words and back.  Each element and
+    # plane word is read once and written once: 8 B a lane.
+    lanes = 2**26
+    x = words(lanes)
+    planes = bitplanes_ops.pack_uint_elements(x)
+    for key, kernel_fn, plain_fn in (
+            ("bitplanes[pack]",
+             lambda: bitplanes_ops.pack_uint_elements(x),
+             lambda: bitplanes_ops.pack_uint_elements_ref(x)),
+            ("bitplanes[unpack]",
+             lambda: bitplanes_ops.unpack_uint_elements(planes, lanes),
+             lambda: bitplanes_ops.unpack_uint_elements_ref(planes,
+                                                            lanes))):
+        record("bitplanes", key, kernel_fn, plain_fn, 8 * lanes, 0,
+               [32, lanes], reps=15,
+               extra={"device_ms": device_ms(torch, timer, kernel_fn)})
+    check(torch.equal(bitplanes_ops.unpack_uint_elements(planes, lanes), x),
+          "bitplanes: the round trip changed an element")
+    del x, planes
     return rows
 
 
@@ -3735,22 +3760,29 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import launch
+    from repro_torch.kernels.bitplanes import ops as bitplanes_ops
     from repro_torch.kernels.bitserial import ops as bitserial_ops
     from repro_torch.kernels.majx import ops as majx_ops
     from repro_torch.kernels.megakernel import ops as mega_ops
     from repro_torch.kernels.mismatch import ops as mismatch_ops
     from repro_torch.kernels.rowcopy import ops as rowcopy_ops
 
+    # The backend's dispatches count these kernels' launches; the
+    # bit-plane transpose, which packs operands and unpacks results
+    # around a run, is tallied apart, a phase at a time.
     kernel_mods = {"majx": majx_ops, "fanout": rowcopy_ops,
                    "megakernel": mega_ops, "mismatch": mismatch_ops,
                    "bitserial": bitserial_ops}
 
     walls = {}
+    transposes = {}
 
     def timed(name, fn, *args):
+        bitplanes_ops.launches = 0
         t0 = time.perf_counter()
         out = fn(*args)
         walls[name] = time.perf_counter() - t0
+        transposes[name] = bitplanes_ops.launches
         return out
 
     smi = timed("build", phase_build, launch)
@@ -3809,6 +3841,22 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "library_call": row["library_call"],
+            "shape": row["shape"]})
+    paths = ("path", "session", "arith", "serve", "tmr_ckpt", "sweep",
+             "sweep_ft", "lm_serve", "train", "dryrun", "paper")
+    for key in ("bitplanes[pack]", "bitplanes[unpack]"):
+        row = rows[key]
+        kernels.append({
+            "name": key, "route": "cuda",
+            "source": "src/repro_torch/csrc/bitplanes.cu",
+            "replaces": "none (the reference leaves the transpose to XLA)",
+            "launches": sum(transposes[p] for p in paths),
+            "launches_by_path": {p: transposes[p] for p in paths},
+            "launches_of": "pack and unpack together",
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "library_call": None,
             "shape": row["shape"]})
     print(smi, flush=True)
     emit({"kernels": kernels})

@@ -231,40 +231,28 @@ def pack_uint_elements(x: torch.Tensor, n_bits: int = 32) -> torch.Tensor:
     modulo 2**32).  Output: int32 planes of shape
     (..., n_bits, ceil(k/32)) — plane ``i`` holds bit ``i`` of every
     element, the column-parallel layout the §8.1 microbenchmarks
-    compute in.  One plane is built at a time in int32, so the
-    temporaries are about the size of the input; planes past the 32nd
-    are zero.
+    compute in; lanes past ``k`` are zero, and so are planes past the
+    32nd.  A CUDA tensor is transposed by ``csrc/bitplanes.cu`` in one
+    launch, a CPU tensor by the plain version, one plane at a time.
     """
+    from repro_torch.kernels.bitplanes import ops
+
     with obs.span("bitplanes.pack"):
-        x = torch.as_tensor(x)
-        if x.dtype != torch.int32:
-            x = wrap_i32(x.to(torch.int64) & 0xFFFFFFFF)
-        pad = n_words(x.shape[-1]) * WORD_BITS - x.shape[-1]
-        if pad:
-            x = torch.nn.functional.pad(x, (0, pad))
-        lanes = x.reshape(*x.shape[:-1], -1, WORD_BITS)
-        shifts = torch.arange(WORD_BITS, dtype=torch.int32,
-                              device=x.device)
-        # Disjoint bits: the int32 sum of a word's lanes is their OR.
-        planes = [(((lanes >> i) & 1) << shifts).sum(-1, dtype=torch.int32)
-                  if i < WORD_BITS else lanes.new_zeros(lanes.shape[:-1])
-                  for i in range(n_bits)]
-        return torch.stack(planes, dim=-2)
+        return ops.pack_uint_elements(x, n_bits)
 
 
 def unpack_uint_elements(planes: torch.Tensor, k: int) -> torch.Tensor:
     """Inverse of :func:`pack_uint_elements` -> int32 tensor (..., k).
 
     Each element holds the ``uint32`` bit pattern of the value; planes
-    past the 32nd carry no bit of it.  One plane is unpacked at a time.
+    past the 32nd carry no bit of it, and missing ones read as zero.  A
+    CUDA tensor is unpacked by ``csrc/bitplanes.cu`` in one launch, a
+    CPU tensor by the plain version, one plane at a time.
     """
+    from repro_torch.kernels.bitplanes import ops
+
     with obs.span("bitplanes.unpack"):
-        out = planes.new_zeros((*planes.shape[:-2], k))
-        for i in range(min(planes.shape[-2], WORD_BITS)):
-            bits = _word_bits(planes[..., i, :]).reshape(
-                *planes.shape[:-2], -1)
-            out |= bits[..., :k] << i
-        return out
+        return ops.unpack_uint_elements(planes, k)
 
 
 def bitcast_to_planes(x: torch.Tensor

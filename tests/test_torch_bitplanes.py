@@ -7,6 +7,8 @@ reference; every comparison converts at the one boundary
 that forgot its mask would sign-extend them.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -150,3 +152,70 @@ def test_bitcast_planes_match_reference(dtype, n_elem):
     back = bp.bitcast_from_planes(words, shape, got_dtype)
     assert back.dtype == tdtype and torch.equal(back.view(torch.uint8),
                                                 x.view(torch.uint8))
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_case(k: int, lead: tuple):
+    """Elements of shape (*lead, k) with sign-bit words first, and the
+    reference's 40 planes of them and its unpack of those: a narrower
+    pack is their first ``n_bits`` planes.  Cached, since each new shape
+    costs the reference a trace."""
+    rng = np.random.default_rng([k, len(lead)])
+    x = rand_u32(rng, *lead, k)
+    x.reshape(-1)[:len(SIGN_WORDS)] = SIGN_WORDS[:k]
+    planes = ref.pack_uint_elements(jnp.asarray(x), n_bits=40)
+    return x, np.asarray(planes), np.asarray(
+        ref.unpack_uint_elements(planes, k))
+
+
+@pytest.mark.parametrize("lead", [(), (3,), (2, 3)], ids=str)
+@pytest.mark.parametrize("n_bits", [1, 5, 31, 32, 33, 40])
+@pytest.mark.parametrize("k", [1, 31, 33, 1000])
+def test_pack_uint_elements_shapes_match_reference(k, n_bits, lead):
+    """Ragged k, any width from 1 to 40 planes (zero planes past the
+    32nd), leading batch dimensions and sign-bit words: the CPU route
+    equals the reference, and unpacking gives back the low ``n_bits``
+    bits of every element (all of them from 32 planes on, as the
+    reference's unpack does)."""
+    x, want, want_back = _wide_case(k, lead)
+    planes = bp.pack_uint_elements(_t(x), n_bits=n_bits)
+    assert planes.shape == (*lead, n_bits, bp.n_words(k))
+    assert (bp.to_u32(planes) == want[..., :n_bits, :]).all()
+    back = bp.unpack_uint_elements(planes, k)
+    low = np.uint32(0xFFFFFFFF >> max(0, 32 - n_bits))
+    assert back.shape == (*lead, k)
+    assert (bp.to_u32(back) == (x & low)).all()
+    if n_bits >= 32:
+        assert (bp.to_u32(back) == want_back).all()
+
+
+@pytest.mark.parametrize("n_planes", [0, 5, 32, 40])
+def test_unpack_uint_elements_plane_count_matches_reference(n_planes):
+    """Fewer than 32 planes read the missing bits as zero (none at all:
+    every element 0, where the reference's reshape fails); planes past
+    the 32nd are ignored; k may be less than the planes' 32 * words."""
+    rng = np.random.default_rng(n_planes)
+    planes = rand_u32(rng, 2, n_planes, 40)
+    for k in (1000, 1280):
+        got = bp.unpack_uint_elements(_t(planes), k)
+        want = (np.asarray(ref.unpack_uint_elements(jnp.asarray(planes), k))
+                if n_planes else np.zeros((2, k), np.uint32))
+        assert (bp.to_u32(got) == want).all()
+
+
+def test_pack_uint_elements_int64_and_strided_input():
+    """int64 values are taken modulo 2**32 (negative ones too); a
+    non-contiguous view packs as its contiguous copy does."""
+    rng = np.random.default_rng(64)
+    x = rng.integers(-2**40, 2**40, (3, 1000), dtype=np.int64)
+    got = bp.pack_uint_elements(torch.from_numpy(x))
+    want = ref.pack_uint_elements(jnp.asarray(x.astype(np.uint32)))
+    assert (bp.to_u32(got) == np.asarray(want)).all()
+    wide = _t(rand_u32(rng, 1000, 3)).T
+    assert not wide.is_contiguous()
+    assert torch.equal(bp.pack_uint_elements(wide, 33),
+                       bp.pack_uint_elements(wide.contiguous(), 33))
+    planes = bp.pack_uint_elements(wide.contiguous())
+    strided = planes.transpose(-1, -2).contiguous().transpose(-1, -2)
+    assert not strided.is_contiguous()
+    assert torch.equal(bp.unpack_uint_elements(strided, 1000), wide)

@@ -24,6 +24,7 @@ from repro_torch import interop
 from repro_torch.backends import ExecutionContext, get_backend
 from repro_torch.compile import build_schedule, lower_schedule
 from repro_torch.core import bitplanes as bp
+from repro_torch.kernels.bitplanes import ops as bitplanes_ops
 from repro_torch.kernels.bitserial import ops as bitserial_ops
 from repro_torch.kernels.majx import ops as majx_ops
 from repro_torch.kernels.megakernel import ops as mega_ops
@@ -423,6 +424,111 @@ def test_add_u32_kernel_matches_numpy(cuda_device):
     assert bitserial_ops.launches == before + 1
     assert got.device.type == "cuda"
     assert (bp.to_u32(got) == x + y).all()
+
+
+SIGN_WORDS = np.array([0x80000001, 0xFFFFFFFF, 0x80000000, 0x7FFFFFFF, 0,
+                       1], np.uint32)
+
+
+def _elements(seed, shape, device, offset=0):
+    """Random uint32 elements of ``shape`` as int32 on ``device``, sign-bit
+    words first, ``offset`` words into their storage."""
+    rng = np.random.default_rng(seed)
+    flat = rng.integers(0, 2**32, offset + int(np.prod(shape)),
+                        dtype=np.uint32)
+    flat[offset:offset + len(SIGN_WORDS)] = SIGN_WORDS[:flat.size - offset]
+    return bp.from_u32(flat, device)[offset:].view(shape)
+
+
+def _pack_unpack_once(x, n_bits, k):
+    """Pack ``x`` and unpack the planes, each one launch, each equal to
+    the plain version on the card; returns (planes, elements)."""
+    before = bitplanes_ops.launches
+    planes = bp.pack_uint_elements(x, n_bits)
+    assert bitplanes_ops.launches == before + 1
+    assert torch.equal(planes, bitplanes_ops.pack_uint_elements_ref(
+        x, n_bits))
+    back = bp.unpack_uint_elements(planes, k)
+    assert bitplanes_ops.launches == before + 2
+    assert torch.equal(back, bitplanes_ops.unpack_uint_elements_ref(
+        planes, k))
+    return planes, back
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead", [(), (3,), (2, 3)], ids=str)
+@pytest.mark.parametrize("n_bits", [1, 5, 31, 32, 33, 40])
+@pytest.mark.parametrize("k", [1, 31, 33, 1000, 1024, 4099, 5000])
+def test_bitplanes_kernels_match_plain(cuda_device, k, n_bits, lead):
+    """Ragged k (4-byte loads where k is not a multiple of 4), 1 to 40
+    planes, leading batch dimensions, sign-bit words: bit-exact with the
+    plain version, and the round trip keeps the low n_bits bits."""
+    x = _elements([k, n_bits, len(lead)], (*lead, k), cuda_device)
+    planes, back = _pack_unpack_once(x, n_bits, k)
+    assert planes.shape == (*lead, n_bits, bp.n_words(k))
+    low = 0xFFFFFFFF >> max(0, 32 - n_bits)
+    assert torch.equal(back, x & bp.wrap_i32(torch.tensor(low)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_planes", [0, 1, 5, 32, 40])
+@pytest.mark.parametrize("k", [1000, 1280, 1283])
+def test_unpack_kernel_any_plane_count(cuda_device, n_planes, k):
+    """Fewer than 32 planes read as zero bits, planes past the 32nd are
+    ignored, k may be less than 32 words' worth of the planes."""
+    planes = _elements(n_planes, (2, n_planes, 41), cuda_device)
+    before = bitplanes_ops.launches
+    got = bp.unpack_uint_elements(planes, k)
+    assert bitplanes_ops.launches == before + 1
+    assert torch.equal(got, bitplanes_ops.unpack_uint_elements_ref(
+        planes, k))
+    assert torch.equal(got.cpu(), bp.unpack_uint_elements(planes.cpu(), k))
+
+
+@pytest.mark.cuda
+def test_bitplanes_kernels_take_any_layout(cuda_device):
+    """int64 input is taken modulo 2**32; a view one word into its
+    storage (4-byte loads), a transposed view and strided planes are
+    made contiguous; the CPU route gives the same planes."""
+    x = _elements(7, (3, 4096), cuda_device)
+    want = bitplanes_ops.pack_uint_elements_ref(x, 32)
+    wide = x.to(torch.int64) + (torch.arange(3, device=cuda_device)[:, None]
+                                << 32)
+    assert torch.equal(bp.pack_uint_elements(wide), want)
+    assert torch.equal(bp.pack_uint_elements(wide - 2**40), want)
+    shifted = _elements(7, (3 * 4096,), cuda_device, offset=1)
+    assert shifted.data_ptr() % 16 == 4
+    _pack_unpack_once(shifted, 32, 3 * 4096)
+    _pack_unpack_once(x.T, 32, 3)
+    planes = bp.pack_uint_elements(x)
+    strided = planes.transpose(-1, -2).contiguous().transpose(-1, -2)
+    assert torch.equal(bp.unpack_uint_elements(strided, 4096), x)
+    assert torch.equal(bp.pack_uint_elements(x.cpu()), planes.cpu())
+    before = bitplanes_ops.launches
+    empty = bp.pack_uint_elements(x[:, :0])
+    assert empty.shape == (3, 32, 0) and bitplanes_ops.launches == before
+
+
+@pytest.mark.cuda
+def test_bitplanes_kernels_at_the_benchmark_width(cuda_device):
+    """2**26 lanes, the arith cells' request: pack, unpack, one launch
+    each, bit-exact with the plain version, and no synchronisation in
+    either (sync debug mode ``error`` raises on any)."""
+    x = _elements(26, (2**26,), cuda_device)
+    planes, back = _pack_unpack_once(x, 32, 2**26)
+    assert torch.equal(back, x)
+    torch.cuda.synchronize()
+    before = bitplanes_ops.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = bp.pack_uint_elements(x)
+        out = bp.unpack_uint_elements(again, 2**26)
+        bp.pack_uint_elements(x[:1000].to(torch.int64), 40)
+        bp.unpack_uint_elements(again[:5, :100], 3199)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bitplanes_ops.launches == before + 4
+    assert torch.equal(again, planes) and torch.equal(out, x)
 
 
 def _numpy_op(op, a, b):

@@ -17,6 +17,7 @@ import torch
 from repro_torch.compile import build_schedule, lower_schedule
 from repro_torch.core import bitplanes as bp
 from repro_torch.kernels import launch
+from repro_torch.kernels.bitplanes import ops as bitplanes_ops
 from repro_torch.kernels.bitserial import ops as bitserial_ops
 from repro_torch.kernels.majx import ops as majx_ops
 from repro_torch.kernels.megakernel import ops as mega_ops
@@ -27,12 +28,16 @@ from repro_torch.pud.isa import Program
 C_TYPES = {"void*": launch.VOID_P, "int": launch.I32,
            "long long": launch.I64}
 
+#: (source, entry point) -> the wrapper's ``argtypes`` for it.
 BINDINGS = {
-    ("majx", "majx_launch"): majx_ops,
-    ("fanout", "fanout_launch"): rowcopy_ops,
-    ("megakernel", "megakernel_launch"): mega_ops,
-    ("mismatch", "mismatch_launch"): mismatch_ops,
-    ("bitserial", "bitserial_add_launch"): bitserial_ops,
+    ("majx", "majx_launch"): majx_ops._ARGS,
+    ("fanout", "fanout_launch"): rowcopy_ops._ARGS,
+    ("megakernel", "megakernel_launch"): mega_ops._ARGS,
+    ("mismatch", "mismatch_launch"): mismatch_ops._ARGS,
+    ("bitserial", "bitserial_add_launch"): bitserial_ops._ARGS,
+    ("bitplanes", "pack_uint_elements_launch"): bitplanes_ops._PACK_ARGS,
+    ("bitplanes", "unpack_uint_elements_launch"):
+        bitplanes_ops._UNPACK_ARGS,
 }
 
 
@@ -51,9 +56,9 @@ def c_signature(name: str, fn: str) -> list:
 
 @pytest.mark.parametrize("key", sorted(BINDINGS), ids=lambda k: k[1])
 def test_argtypes_match_the_c_entry_point(key):
-    assert BINDINGS[key]._ARGS == c_signature(*key)
+    assert BINDINGS[key] == c_signature(*key)
     assert launch.SOURCES == ("majx", "fanout", "megakernel", "mismatch",
-                              "bitserial")
+                              "bitserial", "bitplanes")
 
 
 class _Recorder:
@@ -87,6 +92,10 @@ CALLS = {
     "mismatch": lambda: mismatch_ops.mismatch_count(_words(64), _words(64)),
     "bitserial": lambda: bitserial_ops.bitserial_add(_words(8, 64),
                                                      _words(8, 64)),
+    "bitplanes[pack]": lambda: bitplanes_ops.pack_uint_elements(
+        _words(3, 100), 40),
+    "bitplanes[unpack]": lambda: bitplanes_ops.unpack_uint_elements(
+        _words(3, 40, 4), 100),
 }
 
 
@@ -110,6 +119,85 @@ def test_wrapper_passes_every_parameter(case, monkeypatch):
     (rec,) = recorders.values()
     assert len(rec.calls) == 1
     assert len(rec.calls[0]) == len(rec.argtypes)
+
+
+@pytest.fixture
+def recorded_launches(monkeypatch):
+    """Route every wrapper to the kernel and record each launch's
+    arguments (the stream left out) instead of making it."""
+    calls = []
+
+    def run(f, what, device, *args):
+        calls.append((what, args[2:]))
+
+    monkeypatch.setattr(launch, "on_cpu", lambda t: False)
+    monkeypatch.setattr(launch, "kernel", lambda name, fn, argtypes: fn)
+    monkeypatch.setattr(launch, "run", run)
+    return calls
+
+
+@pytest.mark.parametrize("lead,k,n_bits,vec,blocks", [
+    ((), 2**26, 32, 1, 2**13),          # the benchmark's request
+    ((2, 3), 1000, 40, 1, 1),           # batch 6, one tile a row
+    ((5,), 33, 1, 0, 1),                # ragged k: 4-byte loads
+    ((3,), 2**16 + 4, 32, 1, 25),       # 65 tiles a row: 195 warps
+])
+def test_pack_launch_arguments(recorded_launches, lead, k, n_bits, vec,
+                               blocks):
+    """A CUDA-shaped pack passes (batch, k, n_bits, vec, blocks): one
+    warp a tile of 1024 elements of a row, 8 warps a block, the planes'
+    stride ceil(k / 32) words following from k; int64 input is wrapped
+    to int32 and a transposed view made contiguous first."""
+    x = torch.zeros((*lead, k), dtype=torch.int32)
+    before = bitplanes_ops.launches
+    out = bitplanes_ops.pack_uint_elements(x, n_bits)
+    batch = int(np.prod(lead))
+    assert recorded_launches == [("pack_uint_elements",
+                                  (batch, k, n_bits, vec, blocks))]
+    assert out.shape == (*lead, n_bits, bp.n_words(k))
+    assert out.dtype == torch.int32 and bitplanes_ops.launches == before + 1
+    if lead:
+        recorded_launches.clear()
+        wide = x.to(torch.int64).movedim(-1, 0).contiguous().movedim(0, -1)
+        assert not wide.is_contiguous()
+        bitplanes_ops.pack_uint_elements(wide, n_bits)
+        assert recorded_launches[0][1] == (batch, k, n_bits, vec, blocks)
+
+
+@pytest.mark.parametrize("lead,n_planes,words,k,vec,blocks", [
+    ((), 32, 2**21, 2**26, 1, 2**13),   # the benchmark's result planes
+    ((4,), 5, 40, 1279, 0, 1),          # fewer planes, ragged k
+    ((2,), 40, 3, 64, 1, 1),            # more planes, k < 32 * words
+])
+def test_unpack_launch_arguments(recorded_launches, lead, n_planes, words,
+                                 k, vec, blocks):
+    """A CUDA-shaped unpack passes (batch, k, words, n_planes, vec,
+    blocks): the tiles follow k, the plane stride is the planes' own
+    word count."""
+    planes = torch.zeros((*lead, n_planes, words), dtype=torch.int32)
+    out = bitplanes_ops.unpack_uint_elements(planes, k)
+    assert recorded_launches == [("unpack_uint_elements",
+                                  (int(np.prod(lead)), k, words, n_planes,
+                                   vec, blocks))]
+    assert out.shape == (*lead, k) and out.dtype == torch.int32
+
+
+def test_bitplanes_empty_or_bad_calls_launch_nothing(recorded_launches):
+    empty = bitplanes_ops.pack_uint_elements(torch.zeros((3, 0),
+                                                         dtype=torch.int32))
+    assert empty.shape == (3, 32, 0)
+    assert bitplanes_ops.unpack_uint_elements(
+        torch.zeros((2, 32, 4), dtype=torch.int32), 0).shape == (2, 0)
+    with pytest.raises(ValueError):
+        bitplanes_ops.unpack_uint_elements(
+            torch.zeros((32, 4), dtype=torch.int32), 129)
+    with pytest.raises(ValueError):
+        bitplanes_ops.pack_uint_elements(torch.zeros(8, dtype=torch.int32),
+                                         0)
+    with pytest.raises(TypeError):
+        bitplanes_ops.unpack_uint_elements(
+            torch.zeros((32, 4), dtype=torch.int64), 100)
+    assert recorded_launches == []
 
 
 def test_concurrent_first_use_builds_once(tmp_path, monkeypatch):
