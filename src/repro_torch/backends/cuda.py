@@ -167,7 +167,8 @@ class CudaBackend(Backend):
 
         Value-neutral programs (no write slots) are the identity at zero
         launches — there is nothing to launch, matching what the empty
-        fused walk does.
+        fused walk does.  Every run of the plan counts its levels in
+        ``megakernel.levels`` (:mod:`repro_torch.obs`).
         """
         if lowering is None:
             if sched is None:
@@ -176,13 +177,15 @@ class CudaBackend(Backend):
         state = self.words(state)
         if lowering.n_levels == 0 or lowering.w_max == 0:
             return state.clone()
-        key = plan_for(lowering).key     # the digest, once per lowering
+        plan = plan_for(lowering)
+        key = plan.key                   # the digest, once per lowering
         tables = self._tables.get(key)
         if tables is None:
             tables = mega_ops.upload_tables(lowering, self.device)
             self._tables[key] = tables
         rows, words = state.shape
         self._launch(2 * rows * words * 4)  # image in + image out
+        obs.count("megakernel.levels", plan.n_levels)
         return mega_ops.run_lowering(lowering, state.contiguous(),
                                      tables=tables)
 

@@ -7,7 +7,9 @@
 * :mod:`repro_torch.compile.megakernel` — lower a whole Schedule to
   static level tables one kernel launch executes end-to-end;
 * :mod:`repro_torch.compile.trace` — trace a §8.1 bit-serial gate
-  stream into an addressed Program and its initial image.
+  stream into an addressed Program and its initial image
+  (:func:`compile_elementwise`, exact for the operands it traced), or
+  compile an op once for any operands (:func:`compile_op`).
 
 The first two are copies of the reference package's modules: schedules,
 tables and digests are identical to it.  The tracer keys rows by a
@@ -19,11 +21,13 @@ from repro_torch.compile.megakernel import (MegaLowering, VmemPlan,
                                             lower_schedule, plan_vmem)
 from repro_torch.compile.schedule import (FusedGroup, Schedule,
                                           build_schedule, dependency_levels)
-from repro_torch.compile.trace import (CompiledProgram, Tracer,
-                                       compile_elementwise, trace_planes)
+from repro_torch.compile.trace import (CompiledOp, CompiledProgram, Tracer,
+                                       compile_elementwise, compile_op,
+                                       trace_planes)
 
 __all__ = [
-    "CompiledProgram", "FusedGroup", "MegaLowering", "Schedule", "Tracer",
-    "VmemPlan", "build_schedule", "compile_elementwise",
+    "CompiledOp", "CompiledProgram", "FusedGroup", "MegaLowering",
+    "Schedule", "Tracer", "VmemPlan", "build_schedule",
+    "compile_elementwise", "compile_op",
     "dependency_levels", "lower_schedule", "plan_vmem", "trace_planes",
 ]

@@ -38,6 +38,7 @@ import hashlib
 import threading
 from typing import Optional, TYPE_CHECKING
 
+from repro_torch import obs
 from repro_torch.compile.schedule import Schedule, build_schedule
 from repro_torch.pud.isa import Program
 
@@ -173,15 +174,20 @@ class CompileCache:
         certificate satisfies fused-only lookups.  Raises
         :class:`~repro_torch.analyze.cert.CertificationError` on any error
         finding — a program that fails certification is never admitted.
+        A hit's check of the lowering hashes its tables: the span
+        ``cache.lowering_digest`` (:mod:`repro_torch.obs`).
         """
         from repro_torch.analyze.cert import certify
 
         key = key or program_key(program)
         with self._lock:
             cert = self._certificates.get(key)
-            if cert is not None and (lowering is None
-                                     or cert.lowering_digest
-                                     == lowering.digest()):
+            if cert is not None and lowering is not None:
+                with obs.span("cache.lowering_digest"):
+                    covered = cert.lowering_digest == lowering.digest()
+            else:
+                covered = cert is not None
+            if covered:
                 self._certificates.move_to_end(key)
                 self.certificate_stats.hits += 1
                 return cert

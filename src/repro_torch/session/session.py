@@ -120,10 +120,12 @@ class DramSession:
         schedule or level tables ever diverge from program dataflow.
 
         The whole call is the span ``session.run_fused``
-        (:mod:`repro_torch.obs`); the backend's own span is its child.
+        (:mod:`repro_torch.obs`); the backend's own span is its child, and
+        so is ``session.program_key``, the program's content hash.
         """
         with obs.span("session.run_fused"):
-            key = program_key(program)
+            with obs.span("session.program_key"):
+                key = program_key(program)
             self._validate(program, state, key)
             sched = self.cache.schedule_for(program, key=key)
             lowering = None

@@ -21,6 +21,7 @@ from repro_torch.backends import ExecutionContext
 from repro_torch.backends.cuda import CudaBackend
 from repro_torch.compile.trace import compile_elementwise
 from repro_torch.core import bitplanes as bp
+from repro_torch.kernels.megakernel.plan import plan_for
 from repro_torch.session import DramSession
 
 #: (index uploads, levels) of one fused ``run_fused`` call.
@@ -124,8 +125,9 @@ def test_fused_run_counts_uploads_and_levels(op):
 
 @pytest.mark.parametrize("op", sorted(FUSED_COUNTS))
 def test_megakernel_session_call_and_outputs(op):
-    """Megakernel mode uploads nothing a call; ``outputs`` one row
-    tensor; the backend's span is the session's child."""
+    """Megakernel mode uploads nothing a call and counts its plan's
+    levels; ``outputs`` one row tensor; the backend's span is the
+    session's child."""
     cp, state, a, b = _compiled(op)
     cp.n_lanes = 64
     session = DramSession(CudaBackend(ExecutionContext(device="cpu")))
@@ -134,7 +136,8 @@ def test_megakernel_session_call_and_outputs(op):
         final = session.run_fused(cp.program, state, mode="megakernel")
     with obs.recording() as unpack:
         got = cp.outputs(final)
-    assert run.counters == {}
+    plan = plan_for(session.cache.lowering_for(cp.program))
+    assert run.counters == {"megakernel.levels": plan.n_levels}
     assert unpack.counters == {"backend.index_uploads": 1}
     assert run.spans["session.run_fused"].parents == {None: 1}
     assert run.spans["cuda.run_fused"].parents == {"session.run_fused": 1}
