@@ -28,6 +28,13 @@ the schedule, which is a pure function of program content, so
 ``program_key`` too.  Lowerings keep separate ``lowering_stats`` —
 schedule hit/miss counts are load-bearing in the serve tests and must
 not move when a consumer opts into megakernel mode.
+
+Each hash is taken once per artifact that cannot change: a Program
+remembers its key beside the op objects it was computed from, and the
+cache remembers the digest of each lowering it built, whose tables it
+made read-only.  A Program run again unchanged (a compiled op, an
+executor's traced Program) and its cached lowering cost a lookup a call,
+not a hash; a new or changed Program is hashed as before.
 """
 
 from __future__ import annotations
@@ -36,7 +43,10 @@ import collections
 import dataclasses
 import hashlib
 import threading
+import weakref
 from typing import Optional, TYPE_CHECKING
+
+import numpy as np
 
 from repro_torch import obs
 from repro_torch.compile.schedule import Schedule, build_schedule
@@ -48,12 +58,36 @@ if TYPE_CHECKING:  # pragma: no cover - import cycle guard for hints only
 
 
 def program_key(program: Program) -> str:
-    """Content hash of a Program's semantic fields (tags excluded)."""
+    """Content hash of a Program's semantic fields (tags excluded).
+
+    The key is kept on the Program beside a snapshot of its op objects,
+    ``tuple(program.ops)``.  A later call returns it only when the
+    Program's ops equal that snapshot: tuple comparison tries identity
+    first and ``PUDOp`` is frozen, so an appended, removed or replaced
+    op, or a new ``ops`` list, is hashed afresh (an op replaced by an
+    equal one keeps its key).  Counters ``cache.key_hits`` /
+    ``cache.key_misses`` (:mod:`repro_torch.obs`) count the two cases.
+    """
+    ops = tuple(program.ops)
+    memo = getattr(program, "_key_memo", None)
+    if memo is not None and memo[0] == ops:
+        obs.count("cache.key_hits")
+        return memo[1]
+    obs.count("cache.key_misses")
     h = hashlib.sha256()
-    for op in program.ops:
+    for op in ops:
         h.update(
             f"{op.kind}|{op.x}|{op.n_act}|{op.srcs}|{op.dsts}\n".encode())
-    return h.hexdigest()
+    key = h.hexdigest()
+    program._key_memo = (ops, key)
+    return key
+
+
+def _read_only(table: np.ndarray) -> np.ndarray:
+    """A copy of ``table`` over an immutable buffer: numpy refuses to
+    write it or to make it writable again."""
+    return np.frombuffer(np.ascontiguousarray(table).tobytes(),
+                         dtype=table.dtype).reshape(table.shape)
 
 
 @dataclasses.dataclass
@@ -102,6 +136,9 @@ class CompileCache:
             collections.OrderedDict()
         self._certificates: "collections.OrderedDict[str, Certificate]" = \
             collections.OrderedDict()
+        #: Lowerings this cache built (read-only tables) -> digest.
+        self._digests: "weakref.WeakKeyDictionary[MegaLowering, str]" = \
+            weakref.WeakKeyDictionary()
         self._lock = threading.RLock()
 
     def __len__(self) -> int:
@@ -139,6 +176,12 @@ class CompileCache:
         caller hands one in.  Hits/misses land on ``lowering_stats``,
         never on ``stats`` — schedule-cache accounting is unchanged by
         megakernel execution.
+
+        The tables of a lowering built here are read-only copies of
+        :func:`~repro_torch.compile.megakernel.lower_schedule`'s (one
+        copy, at the miss), over buffers that cannot be made writable
+        again; the cache digests them once, so a certificate check of
+        this lowering is a lookup (:meth:`certificate_for`).
         """
         from repro_torch.compile.megakernel import lower_schedule
 
@@ -153,6 +196,10 @@ class CompileCache:
             if sched is None:
                 sched = self.schedule_for(program, key=key)
             low = lower_schedule(sched)
+            low = dataclasses.replace(low, src=_read_only(low.src),
+                                      dst=_read_only(low.dst),
+                                      inv=_read_only(low.inv))
+            self._digests[low] = low.digest()
             self._lowerings[key] = low
             while len(self._lowerings) > self.maxsize:
                 self._lowerings.popitem(last=False)
@@ -174,8 +221,13 @@ class CompileCache:
         certificate satisfies fused-only lookups.  Raises
         :class:`~repro_torch.analyze.cert.CertificationError` on any error
         finding — a program that fails certification is never admitted.
-        A hit's check of the lowering hashes its tables: the span
-        ``cache.lowering_digest`` (:mod:`repro_torch.obs`).
+        A hit's check of the lowering compares its digest with the
+        certificate's, in the span ``cache.lowering_digest``
+        (:mod:`repro_torch.obs`): a lowering this cache built reads the
+        digest taken when it was built (counter ``cache.digest_hits``);
+        any other lowering, such as one a caller built and may have
+        changed, is digested again on every call
+        (``cache.digest_misses``).
         """
         from repro_torch.analyze.cert import certify
 
@@ -184,7 +236,7 @@ class CompileCache:
             cert = self._certificates.get(key)
             if cert is not None and lowering is not None:
                 with obs.span("cache.lowering_digest"):
-                    covered = cert.lowering_digest == lowering.digest()
+                    covered = cert.lowering_digest == self._digest(lowering)
             else:
                 covered = cert is not None
             if covered:
@@ -200,3 +252,12 @@ class CompileCache:
             while len(self._certificates) > self.maxsize:
                 self._certificates.popitem(last=False)
             return cert
+
+    def _digest(self, lowering: "MegaLowering") -> str:
+        """``lowering.digest()``, remembered for lowerings built here."""
+        digest = self._digests.get(lowering)
+        if digest is not None:
+            obs.count("cache.digest_hits")
+            return digest
+        obs.count("cache.digest_misses")
+        return lowering.digest()

@@ -121,7 +121,9 @@ class DramSession:
 
         The whole call is the span ``session.run_fused``
         (:mod:`repro_torch.obs`); the backend's own span is its child, and
-        so is ``session.program_key``, the program's content hash.
+        so is ``session.program_key``, the program's content hash (a
+        lookup when the same Program object comes back unchanged, see
+        :func:`~repro_torch.session.cache.program_key`).
         """
         with obs.span("session.run_fused"):
             with obs.span("session.program_key"):

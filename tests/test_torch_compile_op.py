@@ -245,7 +245,9 @@ def test_megakernel_calls_count_levels_and_hash_once(op, calls):
         for _ in range(calls):
             session.run_fused(co.program, image, mode="megakernel")
     plan = plan_for(session.cache.lowering_for(co.program))
-    assert rec.counters == {"megakernel.levels": calls * plan.n_levels}
+    assert rec.counters == {"megakernel.levels": calls * plan.n_levels,
+                            "cache.key_hits": calls,
+                            "cache.digest_hits": calls}
     for name in ("session.run_fused", "session.program_key",
                  "cache.lowering_digest"):
         assert rec.spans[name].calls == calls, name

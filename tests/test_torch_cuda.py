@@ -563,6 +563,34 @@ def test_session_elementwise_agrees_with_oracle(cuda_device, op):
     assert torch.equal(cp.outputs(final), out)
 
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["mul", "div"])
+def test_session_memo_hits_agree_with_misses(cuda_device, op):
+    """A compiled op run again through one session looks up its key and
+    its lowering's digest; its images equal a session's whose every
+    call hashes a new copy of the Program through a new cache."""
+    from repro_torch import obs
+    from repro_torch.compile import compile_op
+    from repro_torch.session import CompileCache
+
+    co = compile_op(op, 5, 32)
+    rng = np.random.default_rng(29)
+    a, b = rng.integers(0, 2**32, (2, 2048 * 32), dtype=np.uint32)
+    image = co.image(a, b).to(cuda_device)
+    sess = DramSession()
+    with obs.recording() as rec:
+        hits = [sess.run_fused(co.program, image, mode="megakernel")
+                for _ in range(3)]
+    assert {k: n for k, n in rec.counters.items()
+            if k.startswith("cache.")} == {
+        "cache.key_misses": 1, "cache.key_hits": 2, "cache.digest_hits": 2}
+    miss = DramSession(cache=CompileCache()).run_fused(
+        Program(list(co.program.ops)), image, mode="megakernel")
+    assert all(torch.equal(got, miss) for got in hits)
+    want = _numpy_op(op, a, b)
+    assert (bp.to_u32(co.outputs(hits[-1], a.size)) == want).all()
+
 def _serve_mix(seed, words=1000):
     """Heals (MAJ3 and MAJ5, flips in one replica), erases of two
     patterns and integrity checks, as numpy specs."""

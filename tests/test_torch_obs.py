@@ -137,7 +137,8 @@ def test_megakernel_session_call_and_outputs(op):
     with obs.recording() as unpack:
         got = cp.outputs(final)
     plan = plan_for(session.cache.lowering_for(cp.program))
-    assert run.counters == {"megakernel.levels": plan.n_levels}
+    assert run.counters == {"megakernel.levels": plan.n_levels,
+                            "cache.key_hits": 1, "cache.digest_hits": 1}
     assert unpack.counters == {"backend.index_uploads": 1}
     assert run.spans["session.run_fused"].parents == {None: 1}
     assert run.spans["cuda.run_fused"].parents == {"session.run_fused": 1}
