@@ -321,11 +321,12 @@ def megakernel_case(torch, record, key, timer, low, state,
     regime the planner did not pick is timed beside it where it fits."""
     from repro_torch.kernels.megakernel import ops as mega_ops
     from repro_torch.kernels.megakernel.plan import (exec_plan_ref,
-                                                     plan_launch)
+                                                     plan_for, plan_launch,
+                                                     tables_for)
     from repro_torch.kernels.megakernel.ref import schedule_exec_ref
 
-    tables = mega_ops.upload_tables(low, "cuda")
-    plan = tables.plan
+    tables_for(low, state.device)
+    plan = plan_for(low)
     rows, words = state.shape
     lp = plan_launch(plan, rows, words)
 
@@ -347,15 +348,14 @@ def megakernel_case(torch, record, key, timer, low, state,
         other_ms = None
     else:
         def run_other():
-            return mega_ops.run_lowering(low, state, tables=tables,
-                                         regime=other)
-        check(torch.equal(run_other(), mega_ops.run_lowering(
-            low, state, tables=tables)), f"{key}: the regimes disagree")
+            return mega_ops.run_lowering(low, state, regime=other)
+        check(torch.equal(run_other(), mega_ops.run_lowering(low, state)),
+              f"{key}: the regimes disagree")
         other_ms = timer(run_other, reps=5 if cols else 15)
 
     cost = megakernel_cost(plan, rows, words)
     record("megakernel", key,
-           lambda: mega_ops.run_lowering(low, state, tables=tables),
+           lambda: mega_ops.run_lowering(low, state),
            lambda: exec_plan_ref(plan, state), cost["n_bytes"],
            cost["n_ops"], [low.n_levels, low.w_max, low.x_max, rows, words],
            reps=5 if cols else 15, oracle=oracle,
@@ -673,7 +673,7 @@ def read_launches(kernel_mods, path_kernels, dispatches: int,
 def phase_path(torch, kernel_mods) -> dict:
     """The main path at full width; returns each kernel's launches."""
     from repro_torch.backends import ExecutionContext, get_backend
-    from repro_torch.compile import build_schedule
+    from repro_torch.compile import build_schedule, lower_schedule
     from repro_torch.core.bitplanes import from_u32, to_u32
     from repro_torch.interop import program_from_json
 
@@ -692,6 +692,7 @@ def phase_path(torch, kernel_mods) -> dict:
     start = cuda.dispatch_count
     for name, prog, state in workloads:
         sched = build_schedule(prog)
+        low = lower_schedule(sched)
         state = from_u32(state, DEVICE)
         t0 = time.perf_counter()
         want = oracle.run(prog, state)
@@ -700,7 +701,8 @@ def phase_path(torch, kernel_mods) -> dict:
                 ("per_op", lambda: cuda.run(prog, state)),
                 ("fused", lambda: cuda.run_fused(prog, state)),
                 ("megakernel",
-                 lambda: cuda.run_fused(prog, state, mode="megakernel"))):
+                 lambda: cuda.run_fused(prog, state, mode="megakernel",
+                                        lowering=low))):
             # Run twice: the first run pays one-time costs (library and
             # PyTorch kernel loading, table upload); the second is warm.
             for run in ("first", "warm"):
@@ -970,7 +972,8 @@ def phase_arith(torch, kernel_mods, timer=None) -> dict:
     from repro_torch.core.bitplanes import from_u32, to_u32
     from repro_torch.kernels.bitserial import ops as bitserial_ops
     from repro_torch.kernels.megakernel import ops as mega_ops
-    from repro_torch.kernels.megakernel.plan import plan_launch
+    from repro_torch.kernels.megakernel.plan import (plan_for, plan_launch,
+                                                     tables_for)
     from repro_torch.pud.arith import OPS
     from repro_torch.pud.offload import plan_program
 
@@ -1166,15 +1169,16 @@ def phase_arith(torch, kernel_mods, timer=None) -> dict:
         if timer is None:
             break
         low = lower_schedule(build_schedule(cp.program))
-        tables = mega_ops.upload_tables(low, DEVICE)
         state = from_u32(cp.state, DEVICE)
+        plan = plan_for(low)
+        tables_for(low, state.device)
         rows, words = state.shape
         slots = low.n_levels * low.w_max
-        cost = megakernel_cost(tables.plan, rows, words)
+        cost = megakernel_cost(plan, rows, words)
         emit({"phase": "arith", "megakernel_device": case,
-              "ms": timer(lambda: mega_ops.run_lowering(
-                  low, state, tables=tables), reps=3, warmup=1),
-              "regime": plan_launch(tables.plan, rows, words).regime,
+              "ms": timer(lambda: mega_ops.run_lowering(low, state),
+                          reps=3, warmup=1),
+              "regime": plan_launch(plan, rows, words).regime,
               "bound_ms": cost["bound_ms"], "bound_by": cost["bound_by"],
               "kept_slot_traffic_ms": cost["kept_slot_traffic_ms"],
               "levels": low.n_levels, "plan_levels": cost["levels"],

@@ -54,13 +54,6 @@ from repro_torch.pud.isa import Program
 class CudaBackend(Backend):
     name = "cuda"
 
-    def __init__(self, ctx=None):
-        super().__init__(ctx)
-        #: Execution plans on ``self.device``, by their key (derived from
-        #: ``MegaLowering.digest()``): each lowering is planned, hashed
-        #: and uploaded once, not once per run.
-        self._tables: dict[str, mega_ops.DeviceTables] = {}
-
     def capabilities(self) -> Capabilities:
         return Capabilities(
             name=self.name,
@@ -177,17 +170,10 @@ class CudaBackend(Backend):
         state = self.words(state)
         if lowering.n_levels == 0 or lowering.w_max == 0:
             return state.clone()
-        plan = plan_for(lowering)
-        key = plan.key                   # the digest, once per lowering
-        tables = self._tables.get(key)
-        if tables is None:
-            tables = mega_ops.upload_tables(lowering, self.device)
-            self._tables[key] = tables
         rows, words = state.shape
         self._launch(2 * rows * words * 4)  # image in + image out
-        obs.count("megakernel.levels", plan.n_levels)
-        return mega_ops.run_lowering(lowering, state.contiguous(),
-                                     tables=tables)
+        obs.count("megakernel.levels", plan_for(lowering).n_levels)
+        return mega_ops.run_lowering(lowering, state.contiguous())
 
     def _exec_group(self, group, entry: torch.Tensor):
         """One group's writes, ``(dst row index, values)``, computed

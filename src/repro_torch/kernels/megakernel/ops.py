@@ -1,8 +1,9 @@
 """Host-side wrapper: run a MegaLowering against a bit-plane image.
 
 :func:`run_lowering` validates the tables against the image, takes the
-lowering's execution plan (:mod:`repro_torch.kernels.megakernel.plan`:
-the live slots, hazard slots marked), and launches ``csrc/megakernel.cu``
+lowering's execution plan and its arrays on the image's device from the
+lowering's memo (:mod:`repro_torch.kernels.megakernel.plan`: the live
+slots, hazard slots marked), and launches ``csrc/megakernel.cu``
 exactly once on it, in the regime :func:`~repro_torch.kernels.megakernel.
 plan.plan_launch` picks from the shapes.  On a CPU image it walks the
 same plan with :func:`~repro_torch.kernels.megakernel.plan.exec_plan_ref`.
@@ -11,7 +12,6 @@ same plan with :func:`~repro_torch.kernels.megakernel.plan.exec_plan_ref`.
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Optional
 
 import torch
@@ -20,8 +20,8 @@ from repro_torch.compile.megakernel import (MegaLowering, N_CONST_ROWS,
                                             ONE_ROW)
 from repro_torch.core import bitplanes as bp
 from repro_torch.kernels import launch
-from repro_torch.kernels.megakernel.plan import (ExecPlan, exec_plan_ref,
-                                                 plan_for, plan_launch)
+from repro_torch.kernels.megakernel.plan import (exec_plan_ref, plan_for,
+                                                 plan_launch, tables_for)
 
 #: Kernel launches made by this module since the count was last zeroed.
 launches = 0
@@ -30,32 +30,7 @@ _ARGS = ([launch.VOID_P] * 6 + [launch.I32] * 2 + [launch.I64]
          + [launch.I32] * 10 + [launch.VOID_P])
 
 
-@dataclasses.dataclass(frozen=True)
-class DeviceTables:
-    """A lowering's execution plan, and its arrays on one device."""
-
-    plan: ExecPlan
-    chunks: torch.Tensor     # (n_chunks, 8) int32
-    levels: torch.Tensor     # (n_levels, 4) int32
-    slots: torch.Tensor      # (n_slots, 4) int32
-    operands: torch.Tensor   # (n_operands,) int32
-
-
-def upload_tables(lowering: MegaLowering, device) -> DeviceTables:
-    """Plan ``lowering`` and copy the plan to ``device`` (once per
-    lowering: the ``cuda`` backend caches the result by
-    :meth:`MegaLowering.digest`)."""
-    plan = plan_for(lowering)
-
-    def put(a):
-        return torch.as_tensor(a, dtype=torch.int32,
-                               device=device).contiguous()
-    return DeviceTables(plan, put(plan.chunks), put(plan.level_records()),
-                        put(plan.slot_records()), put(plan.operands))
-
-
 def run_lowering(lowering: MegaLowering, state: torch.Tensor, *,
-                 tables: Optional[DeviceTables] = None,
                  regime: Optional[str] = None) -> torch.Tensor:
     """Execute lowered level tables on a (rows, words) int32 image.
 
@@ -88,9 +63,7 @@ def run_lowering(lowering: MegaLowering, state: torch.Tensor, *,
     if launch.on_cpu(state):
         return exec_plan_ref(plan, state)
 
-    if tables is None:
-        tables = upload_tables(lowering, state.device)
-    plan = tables.plan
+    tables = tables_for(lowering, state.device)
     lp = plan_launch(plan, rows, words, regime=regime)
     if lp.regime == "resident":
         out = torch.empty_like(state)

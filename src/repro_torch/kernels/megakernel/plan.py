@@ -29,18 +29,20 @@ left as they are (their digests stay the reference's):
   plain slots first, then the hazard slots.
 
 The arrays are CSR: ``level_ptr`` indexes slots, ``op_ptr`` indexes
-operands.  :func:`plan_for` memoizes the plan on the lowering object,
-and :attr:`ExecPlan.key` is derived from the lowering's digest.
-:func:`exec_plan_ref` is the plain PyTorch walker of a plan (the CPU
-route of :func:`~repro_torch.kernels.megakernel.ops.run_lowering`), and
-:func:`plan_launch` picks the CUDA kernel's regime and strip width.
+operands.  A lowering's tables do not change after it is made, so what
+it derives is memoized once, by the lowering object, for as long as the
+lowering lives: :func:`plan_for` gives its plan and :func:`tables_for`
+the plan's arrays on a device.  :func:`exec_plan_ref` is the plain
+PyTorch walker of a plan (the CPU route of :func:`~repro_torch.kernels.
+megakernel.ops.run_lowering`), and :func:`plan_launch` picks the CUDA
+kernel's regime and strip width.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-import hashlib
+import threading
 import weakref
 from typing import Optional
 
@@ -51,8 +53,6 @@ from repro_torch.compile.megakernel import (MegaLowering, N_CONST_ROWS,
                                             ONE_ROW, TRASH_ROW, ZERO_ROW)
 from repro_torch.core import bitplanes as bp
 
-#: Version of the planning rules, folded into :attr:`ExecPlan.key`.
-PLAN_VERSION = 1
 #: Most levels, slot records and operands a block stages in shared
 #: memory at once (:meth:`ExecPlan.chunk_records`).
 STAGE_LEVELS, STAGE_SLOTS, STAGE_OPS = 256, 512, 2048
@@ -74,7 +74,6 @@ class ExecPlan:
     operands: np.ndarray    # (n_operands,) int32
     dst: np.ndarray         # (n_slots,) int32
     inv: np.ndarray         # (n_slots,) int32, 0 or 1
-    key: str
     #: (min, max) row of the lowering's ``src`` and ``dst`` tables, padding
     #: included, so a run validates them without reading the tables.
     table_rows: dict
@@ -171,12 +170,6 @@ class ExecPlan:
         return 16 * (levels + slots) + 4 * ops
 
 
-def plan_key(lowering: MegaLowering) -> str:
-    """Content key of the plan of ``lowering``, from its digest."""
-    return hashlib.sha256(f"exec-plan/{PLAN_VERSION}|{lowering.digest()}"
-                          .encode()).hexdigest()
-
-
 def build_plan(lowering: MegaLowering) -> ExecPlan:
     """Derive the execution plan of ``lowering`` (see module docstring).
 
@@ -232,23 +225,59 @@ def build_plan(lowering: MegaLowering) -> ExecPlan:
 
     return ExecPlan(level_ptr=i32(level_ptr), n_hazard=i32(n_hazard),
                     op_ptr=i32(op_ptr), operands=i32(operands),
-                    dst=i32(dsts), inv=i32(invs), key=plan_key(lowering),
+                    dst=i32(dsts), inv=i32(invs),
                     table_rows={name: (int(t.min()), int(t.max()))
                                 for name, t in (("src", src), ("dst", dst))})
 
 
-_PLANS: "weakref.WeakKeyDictionary[MegaLowering, ExecPlan]" = \
+@dataclasses.dataclass(frozen=True)
+class DeviceTables:
+    """A plan's arrays on one device, as ``csrc/megakernel.cu`` reads
+    them."""
+
+    chunks: torch.Tensor     # (n_chunks, 8) int32
+    levels: torch.Tensor     # (n_levels, 4) int32
+    slots: torch.Tensor      # (n_slots, 4) int32
+    operands: torch.Tensor   # (n_operands,) int32
+
+
+#: Lowering -> (its plan, {device: the plan's arrays there}).  Weak keys:
+#: an entry, device tables included, lives exactly as long as its
+#: lowering.  Built under the lock, so threads that run one lowering
+#: build it once.
+_DERIVED: "weakref.WeakKeyDictionary[MegaLowering, tuple]" = \
     weakref.WeakKeyDictionary()
+_LOCK = threading.RLock()
+
+
+def _derived(lowering: MegaLowering) -> tuple[ExecPlan, dict]:
+    with _LOCK:
+        entry = _DERIVED.get(lowering)
+        if entry is None:
+            entry = _DERIVED[lowering] = (build_plan(lowering), {})
+        return entry
 
 
 def plan_for(lowering: MegaLowering) -> ExecPlan:
-    """The plan of ``lowering``, built once per lowering object (a
-    lowering's tables are not modified after it is made)."""
-    plan = _PLANS.get(lowering)
-    if plan is None:
-        plan = build_plan(lowering)
-        _PLANS[lowering] = plan
-    return plan
+    """The plan of ``lowering``, built once per lowering object."""
+    return _derived(lowering)[0]
+
+
+def tables_for(lowering: MegaLowering, device) -> DeviceTables:
+    """The plan of ``lowering`` on ``device``, copied there once per
+    lowering object and device."""
+    device = torch.device(device)
+    with _LOCK:
+        plan, on_device = _derived(lowering)
+        tables = on_device.get(device)
+        if tables is None:
+            def put(a):
+                return torch.as_tensor(a, dtype=torch.int32,
+                                       device=device).contiguous()
+            tables = on_device[device] = DeviceTables(
+                put(plan.chunks), put(plan.level_records()),
+                put(plan.slot_records()), put(plan.operands))
+        return tables
 
 
 def exec_plan_ref(plan: ExecPlan, state: torch.Tensor) -> torch.Tensor:

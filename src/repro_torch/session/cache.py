@@ -153,19 +153,9 @@ class CompileCache:
         the first caller for a key builds under the lock, concurrent
         callers for the same key wait and hit.
         """
-        key = key or program_key(program)
-        with self._lock:
-            sched = self._entries.get(key)
-            if sched is not None:
-                self._entries.move_to_end(key)
-                self.stats.hits += 1
-                return sched
-            self.stats.misses += 1
-            sched = build_schedule(program)
-            self._entries[key] = sched
-            while len(self._entries) > self.maxsize:
-                self._entries.popitem(last=False)
-            return sched
+        return self._cached(self._entries, self.stats,
+                            key or program_key(program),
+                            lambda: build_schedule(program))
 
     def lowering_for(self, program: Program, key: Optional[str] = None,
                      sched: Optional[Schedule] = None) -> "MegaLowering":
@@ -186,24 +176,18 @@ class CompileCache:
         from repro_torch.compile.megakernel import lower_schedule
 
         key = key or program_key(program)
-        with self._lock:
-            low = self._lowerings.get(key)
-            if low is not None:
-                self._lowerings.move_to_end(key)
-                self.lowering_stats.hits += 1
-                return low
-            self.lowering_stats.misses += 1
-            if sched is None:
-                sched = self.schedule_for(program, key=key)
-            low = lower_schedule(sched)
+
+        def build():
+            low = lower_schedule(
+                sched if sched is not None
+                else self.schedule_for(program, key=key))
             low = dataclasses.replace(low, src=_read_only(low.src),
                                       dst=_read_only(low.dst),
                                       inv=_read_only(low.inv))
             self._digests[low] = low.digest()
-            self._lowerings[key] = low
-            while len(self._lowerings) > self.maxsize:
-                self._lowerings.popitem(last=False)
             return low
+        return self._cached(self._lowerings, self.lowering_stats, key,
+                            build)
 
     def certificate_for(self, program: Program, key: Optional[str] = None,
                         sched: Optional[Schedule] = None,
@@ -232,26 +216,38 @@ class CompileCache:
         from repro_torch.analyze.cert import certify
 
         key = key or program_key(program)
+
+        def covers(cert) -> bool:
+            if lowering is None:
+                return True
+            with obs.span("cache.lowering_digest"):
+                return cert.lowering_digest == self._digest(lowering)
+
+        def build():
+            return certify(program, sched=sched if sched is not None
+                           else self.schedule_for(program, key=key),
+                           lowering=lowering, key=key,
+                           where=f"program {key[:12]}")
+        return self._cached(self._certificates, self.certificate_stats,
+                            key, build, covers)
+
+    def _cached(self, store: collections.OrderedDict, stats: CacheStats,
+                key: str, build, hit=lambda entry: True):
+        """The LRU block of the three stores, under the lock: ``store``'s
+        entry for ``key`` where ``hit`` accepts it (moved to the recent
+        end; a hit on ``stats``), else ``build()`` admitted under ``key``
+        (a miss; the oldest entries past ``maxsize`` are evicted)."""
         with self._lock:
-            cert = self._certificates.get(key)
-            if cert is not None and lowering is not None:
-                with obs.span("cache.lowering_digest"):
-                    covered = cert.lowering_digest == self._digest(lowering)
-            else:
-                covered = cert is not None
-            if covered:
-                self._certificates.move_to_end(key)
-                self.certificate_stats.hits += 1
-                return cert
-            self.certificate_stats.misses += 1
-            if sched is None:
-                sched = self.schedule_for(program, key=key)
-            cert = certify(program, sched=sched, lowering=lowering,
-                           key=key, where=f"program {key[:12]}")
-            self._certificates[key] = cert
-            while len(self._certificates) > self.maxsize:
-                self._certificates.popitem(last=False)
-            return cert
+            entry = store.get(key)
+            if entry is not None and hit(entry):
+                store.move_to_end(key)
+                stats.hits += 1
+                return entry
+            stats.misses += 1
+            entry = store[key] = build()
+            while len(store) > self.maxsize:
+                store.popitem(last=False)
+            return entry
 
     def _digest(self, lowering: "MegaLowering") -> str:
         """``lowering.digest()``, remembered for lowerings built here."""

@@ -70,17 +70,6 @@ def operands(law, seed):
     return a, b.astype(np.uint32)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """These runs are thousands of small ops a call: on a machine loaded
-    with other test processes, waiting for an intra-op thread pool at
-    each of them costs far more than the pool saves."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 @functools.lru_cache(maxsize=None)
 def _compiled(op, tier):
     """The op's CompiledOp and one session for both modes (its cache

@@ -1003,7 +1003,10 @@ def test_index_uploads_are_host_waits(cuda_device, mode, uploads):
     cp = compile_elementwise("add", a, b, tier=5, n_act=32)
     backend = get_backend("cuda", ExecutionContext(device="cuda"))
     state = bp.from_u32(cp.state, cuda_device)
-    backend.run_fused(cp.program, state, mode=mode)     # build, warm
+    # One lowering for both runs, as a session's cache hands it in: a
+    # megakernel run uploads its plan once per lowering object.
+    low = lower_schedule(build_schedule(cp.program))
+    backend.run_fused(cp.program, state, mode=mode, lowering=low)  # warm
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("warn")
     try:
@@ -1011,7 +1014,7 @@ def test_index_uploads_are_host_waits(cuda_device, mode, uploads):
                 obs.recording() as rec:
             warnings.simplefilter("always")
             got = cp.outputs(backend.run_fused(cp.program, state,
-                                               mode=mode))
+                                               mode=mode, lowering=low))
     finally:
         torch.cuda.set_sync_debug_mode(0)
     waits = [w for w in caught if "synchroniz" in str(w.message)]

@@ -32,16 +32,6 @@ from repro_torch.session import CompileCache, DramSession, program_key
 CTX = ExecutionContext(device="cpu", tier=5, n_act=32)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Thousands of small ops a call: one intra-op thread is faster on a
-    machine loaded with other test processes."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def fresh_key(program) -> str:
     """The content hash, computed from scratch."""
     h = hashlib.sha256()

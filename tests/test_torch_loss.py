@@ -35,17 +35,6 @@ LOSS_TOL = 1e-5
 GRAD_TOL = 1e-4
 
 
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: these eager steps run thousands of tiny ops,
-    which are faster so on their own and do not oversubscribe the cores
-    that parallel test workers share."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def f32_smoke(arch, **kw):
     """(reference, port) float32 copies of an arch's smoke config."""
     return (dataclasses.replace(ref_registry.get_config(arch, smoke=True),

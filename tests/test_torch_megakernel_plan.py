@@ -12,9 +12,13 @@ of the plan's rules.  All comparisons are bit-exact; the tables and
 their digests must come out of planning unchanged.
 """
 
+import gc
 import glob
 import json
 import os
+import sys
+import threading
+import weakref
 
 import jax.numpy as jnp
 import numpy as np
@@ -39,9 +43,9 @@ from repro_torch.kernels.megakernel import ops as mega_ops
 from repro_torch.kernels.megakernel.plan import (STAGE_LEVELS, STAGE_OPS,
                                                  STAGE_SLOTS, build_plan,
                                                  exec_plan_ref, plan_for,
-                                                 plan_key, plan_launch)
+                                                 plan_launch, tables_for)
 from repro_torch.kernels.megakernel.ref import schedule_exec_ref
-from repro_torch.session import DramSession
+from repro_torch.session import CompileCache, DramSession
 from test_compile_differential import rand_program
 
 CPU = ExecutionContext(device="cpu", ideal=True)
@@ -65,7 +69,6 @@ def _check_plan(low: MegaLowering, state) -> None:
     assert low.digest() == digest
     assert all((a == b).all() for a, b in zip(tables,
                                               (low.src, low.dst, low.inv)))
-    assert plan.key == plan_key(low) != digest
     state = _t(state)
     got = exec_plan_ref(plan, state)
     assert torch.equal(got, schedule_exec_ref(low, state))
@@ -394,6 +397,71 @@ def test_plan_chunks_cover_the_levels(fan):
     assert chunks[:, 6].tolist() == ([1] if fan == 5 else [1, 0, 1])
     state = rand_u32(np.random.default_rng(fan), 4 + fan, 3)
     _check_plan(low, state)
+
+
+def test_a_lowering_derives_one_plan_and_one_table_set_a_device():
+    """``plan_for`` and ``tables_for`` build once per lowering object
+    (and device), and what they built goes with the lowering."""
+    prog = _wide_level_program(5)
+    low = lower_schedule(build_schedule(prog))
+    plan, tables = plan_for(low), tables_for(low, "cpu")
+    assert plan_for(low) is plan
+    assert tables_for(low, torch.device("cpu")) is tables
+    for got, want in ((tables.chunks, plan.chunks),
+                      (tables.levels, plan.level_records()),
+                      (tables.slots, plan.slot_records()),
+                      (tables.operands, plan.operands)):
+        assert got.dtype == torch.int32 and got.is_contiguous()
+        assert torch.equal(got, torch.as_tensor(want, dtype=torch.int32))
+    # An equal lowering is another object: it derives its own.
+    twin = lower_schedule(build_schedule(prog))
+    assert twin.digest() == low.digest() and plan_for(twin) is not plan
+    derived = [weakref.ref(x) for x in (plan, tables, plan_for(twin))]
+    del low, twin, plan, tables
+    gc.collect()
+    assert [r() for r in derived] == [None] * 3
+
+
+def test_threads_that_run_one_lowering_share_what_it_derives():
+    """Sixteen threads (more than the cores) asking at once for a new
+    lowering's plan and tables get one of each."""
+    low = lower_schedule(build_schedule(_wide_level_program(7)))
+    got, start = [], threading.Barrier(16)
+
+    def ask():
+        start.wait(timeout=30)
+        got.append((plan_for(low), tables_for(low, "cpu")))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=ask) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and len(got) == 16
+    assert len({id(p) for p, _ in got}) == len({id(t) for _, t in got}) == 1
+
+
+def test_evicted_lowerings_release_what_they_derived():
+    """A session's cache bounds what stays derived: once its LRU drops a
+    lowering, the lowering's plan and device tables go with it."""
+    sess = DramSession("cuda", CPU, cache=CompileCache(maxsize=1))
+    derived = []
+    for fan in (5, 6):
+        prog = _wide_level_program(fan)
+        state = rand_u32(np.random.default_rng(fan), 4 + fan, 3)
+        sess.run_fused(prog, state, mode="megakernel")
+        low = sess.cache.lowering_for(prog)
+        derived.append([weakref.ref(x)
+                        for x in (plan_for(low), tables_for(low, "cpu"))])
+    del low
+    gc.collect()
+    assert [r() is None for r in derived[0]] == [True, True]
+    assert [r() is None for r in derived[1]] == [False, False]
 
 
 def test_many_levels_make_many_chunks():

@@ -42,17 +42,6 @@ from repro_torch.train import step as PS
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
 
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: these eager steps run thousands of tiny ops,
-    which are faster so on their own and do not oversubscribe the cores
-    that parallel test workers share."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def f32_smoke(arch, **kw):
     return (dataclasses.replace(ref_registry.get_config(arch, smoke=True),
                                 dtype="float32", **kw),
