@@ -46,12 +46,24 @@
 //     loaded from the program rows once, the constant rows are made in
 //     place, all levels run in shared memory, and the program rows are
 //     written to the output once;
-//   * streaming: too few columns of the image fit an SM; it stays in
-//     device memory (the augmented copy, updated in place) and in L2.
-//     Image words are read with plain loads, never through the
-//     read-only path: the image is written during the launch, and
+//   * streaming: too few columns of the image fit an SM; the image
+//     stays in device memory and in L2, as two images: the caller's
+//     program rows, read in place and never written during the launch,
+//     and the augmented output, which every vote writes.  Each operand
+//     of the plan's streaming list names its image (kernels/megakernel/
+//     plan.py: a program row no kept slot has written before the level
+//     is read from the input, the level-entry value; the constant rows
+//     and rows written at an earlier level from the output).  Per strip
+//     the block first makes the output's constant rows and copies the
+//     rows no kept slot writes (the plan's pass-through rows, then the
+//     program rows past the lowering's) from the input, so the output
+//     is whole without a copy of the image before the launch.  Output
+//     words are read with plain loads, never through the read-only
+//     path: the output is written during the launch, and
 //     __syncthreads() is what makes one warp's writes visible to the
-//     others.  Shared memory holds the hazard votes and the plan.
+//     others.  An operand's image is a select of the address, so both
+//     images take the same plain load.  Shared memory holds the hazard
+//     votes and the plan.
 // A level's plan entries are the same for every thread, and a chain of
 // dependent table loads from device memory every level (level record,
 // slot record, operand rows, then the image) would add to each level's
@@ -126,18 +138,22 @@ struct SharedImage {
   }
 };
 
-// The augmented image in device memory, from the strip's first column;
-// `stride` counts W a row.  Plain loads: the image is written during
-// the launch.
+// The streaming regime's two images from the strip's first column;
+// `stride` counts W a row.  An operand entry e >= 0 is augmented row e
+// of the output, e < 0 program row ~e of the input.  Plain loads: the
+// output is written during the launch.
 template <typename W>
-struct GlobalImage {
-  W* base;
+struct StreamImage {
+  const W* in;
+  W* out;
   long long stride;
-  __device__ __forceinline__ W get(int row, int c) const {
-    return base[(long long)row * stride + c];
+  __device__ __forceinline__ W get(int e, int c) const {
+    const W* row = e < 0 ? in + (long long)(~e) * stride
+                         : out + (long long)e * stride;
+    return row[c];
   }
   __device__ __forceinline__ void put(int row, int c, W v) const {
-    base[(long long)row * stride + c] = v;
+    out[(long long)row * stride + c] = v;
   }
 };
 
@@ -287,31 +303,78 @@ __global__ void megakernel_resident(
   }
 }
 
+// Blocks of kStreamingThreads an SM the streaming kernel's registers
+// are capped for.  A level costs a block a fixed latency, so the blocks
+// in flight set the streaming rate, and registers bound them before
+// shared memory does.  On an H100, uncapped, the kernel took 90
+// registers a thread (5 blocks an SM) and ran 23-32 % slower than the
+// one-image kernel at 71 (7 blocks); capped at 48 (10 blocks, ~200
+// bytes of spills a thread) it ran within 1-6 % of that (PERF.md §6).
+// kStreamingThreads is the block size plan_launch picks.
+constexpr int kStreamingThreads = 128;
+constexpr int kStreamingBlocks = 10;
+
+// Per strip: the output's constant rows, then the n_pass rows of
+// `pass` and the program rows from `tail` on copied from the input (a
+// row the plan writes is never among them), then the levels.
 template <int D, typename W>
-__global__ void megakernel_streaming(
-    uint32_t* image, const int4* __restrict__ chunks, int n_chunks,
+__global__ void __launch_bounds__(kStreamingThreads, kStreamingBlocks)
+    megakernel_streaming(
+    const uint32_t* __restrict__ state, uint32_t* out,
+    const int4* __restrict__ chunks, int n_chunks,
     const int4* __restrict__ levels, const int4* __restrict__ slots,
-    const int* __restrict__ ops, long long words, int strip, int stage,
+    const int* __restrict__ ops, const int* __restrict__ pass, int n_pass,
+    int tail, int rows_aug, long long words, int strip, int stage,
     int stage_levels, int stage_slots) {
   constexpr int kPer = sizeof(W) / 4;
   extern __shared__ __align__(16) uint32_t smem[];
   const Smem sm = carve(smem, 0, stage, stage_levels, stage_slots);
+  const int q = strip / kPer;  // a power of two, as strip is
+  const int qs = __ffs(q) - 1;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const long long stride = words / kPer;
+  const int n = (n_pass + rows_aug - 3 - tail) * q;  // copied items
   const long long n_strips = (words + strip - 1) / strip;
   for (long long sb = blockIdx.x; sb < n_strips; sb += gridDim.x) {
     const long long col0 = sb * strip;
     const int ncols = (int)min((long long)strip, words - col0);
+    const int valid = (ncols + kPer - 1) / kPer;
+    const StreamImage<W> image{(const W*)(state + col0), (W*)(out + col0),
+                               stride};
+    // Constant rows: zero, one, trash (starts at zero).
+    for (int i = tid; i < 3 * q; i += nt) {
+      const int r = i >> qs, c = i & (q - 1);
+      if (c < valid)
+        image.put(r, c, bitslice::splat<W>(r == 1 ? 0xFFFFFFFFu : 0u));
+    }
+    // kLoads loads in flight a thread before any store.
+    for (int i0 = tid; i0 < n; i0 += kLoads * nt) {
+      int row[kLoads];
+      W v[kLoads];
+#pragma unroll
+      for (int j = 0; j < kLoads; ++j) {
+        const int i = i0 + j * nt, k = i >> qs, c = i & (q - 1);
+        row[j] = k < n_pass ? __ldg(pass + k) : tail + (k - n_pass);
+        if (i < n && c < valid)
+          v[j] = __ldg(image.in + (long long)row[j] * stride + c);
+      }
+#pragma unroll
+      for (int j = 0; j < kLoads; ++j) {
+        const int i = i0 + j * nt, c = i & (q - 1);
+        if (i < n && c < valid) image.put(3 + row[j], c, v[j]);
+      }
+    }
+    __syncthreads();
     run_chunks<D, W>(chunks, n_chunks, levels, slots, ops, sm.st_levels,
-                     sm.st_slots, sm.st_ops, (W*)sm.held, strip / kPer,
-                     (ncols + kPer - 1) / kPer,
-                     GlobalImage<W>{(W*)(image + col0), words / kPer});
+                     sm.st_slots, sm.st_ops, (W*)sm.held, q, valid, image);
   }
 }
 
 struct Launch {
   const void* state;
   void* out;
-  const void *chunks, *levels, *slots, *ops;
-  int n_chunks, rows_aug;
+  const void *chunks, *levels, *slots, *ops, *pass;
+  int n_chunks, n_pass, tail, rows_aug;
   long long words;
   int resident, strip, vec, smem, stage, stage_levels, stage_slots;
   int blocks, threads;
@@ -338,7 +401,8 @@ struct Launch {
                                  smem);
       if (err != cudaSuccess) return (int)err;
       megakernel_streaming<D, W><<<blocks, threads, smem, stream>>>(
-          (uint32_t*)out, c, n_chunks, l, s, o, words, strip, stage,
+          (const uint32_t*)state, (uint32_t*)out, c, n_chunks, l, s, o,
+          (const int*)pass, n_pass, tail, rows_aug, words, strip, stage,
           stage_levels, stage_slots);
     }
     return (int)cudaGetLastError();
@@ -353,20 +417,26 @@ struct Launch {
 }  // namespace
 
 // Resident (resident != 0): state is the (rows_aug - 3, words) program
-// rows, read once; out is a (rows_aug - 3, words) output, written once.
-// Streaming: state is unused and out is the augmented (rows_aug, words)
-// image, updated in place.  chunks: (n_chunks, 8) int32; levels:
-// (n_levels, 4) int32; slots: (n_slots, 4) int32; ops: flat int32
-// operand rows.  max_arity sizes the counter.  smem is the dynamic
-// shared memory of a block in bytes; the stage starts `stage` words in
-// and holds stage_levels level records, then stage_slots slot records,
-// then the operands.  vec != 0 makes an item four neighbouring columns
-// with 16-byte accesses (words and strip multiples of 4, state and out
-// 16-byte aligned; refused with cudaErrorInvalidValue otherwise).
+// rows, read once; out is a (rows_aug - 3, words) output, written once;
+// ops is the plan's operand list.  Streaming: state is the program rows,
+// read in place and never written; out is the augmented (rows_aug,
+// words) output, which the launch fills whole; ops is the plan's
+// streaming operand list (an entry below 0 is program row ~e of
+// state); the launch copies the n_pass program rows of `pass`, then
+// rows tail .. rows_aug - 4, from state into out.  chunks: (n_chunks, 8)
+// int32; levels: (n_levels, 4) int32; slots: (n_slots, 4) int32; ops:
+// flat int32 operand rows.  max_arity sizes the counter.  smem is the
+// dynamic shared memory of a block in bytes; the stage starts `stage`
+// words in and holds stage_levels level records, then stage_slots slot
+// records, then the operands.  vec != 0 makes an item four neighbouring
+// columns with 16-byte accesses (words and strip multiples of 4, state
+// and out 16-byte aligned; refused with cudaErrorInvalidValue
+// otherwise).
 extern "C" int megakernel_launch(const void* state, void* out,
                                  const void* chunks, const void* levels,
                                  const void* slots, const void* ops,
-                                 int n_chunks, int rows_aug, long long words,
+                                 const void* pass, int n_chunks, int n_pass,
+                                 int tail, int rows_aug, long long words,
                                  int max_arity, int resident, int strip,
                                  int vec, int smem, int stage,
                                  int stage_levels, int stage_slots,
@@ -375,9 +445,11 @@ extern "C" int megakernel_launch(const void* state, void* out,
               (((uintptr_t)state | (uintptr_t)out) & 15) != 0))
     return (int)cudaErrorInvalidValue;
   if (words <= 0) return (int)cudaGetLastError();
-  const Launch launch{state,       out,      chunks,   levels, slots,
-                      ops,         n_chunks, rows_aug, words,  resident,
-                      strip,       vec,      smem,     stage,  stage_levels,
-                      stage_slots, blocks,   threads,  (cudaStream_t)stream};
+  const Launch launch{state,  out,      chunks,       levels,
+                      slots,  ops,      pass,         n_chunks,
+                      n_pass, tail,     rows_aug,     words,
+                      resident, strip,  vec,          smem,
+                      stage,  stage_levels, stage_slots, blocks,
+                      threads, (cudaStream_t)stream};
   return bitslice::with_digits(bitslice::digits_for(max_arity), launch);
 }

@@ -7,7 +7,9 @@ slots, hazard slots marked), and launches ``csrc/megakernel.cu``
 exactly once on it, in the regime :func:`~repro_torch.kernels.megakernel.
 plan.plan_launch` picks from the shapes.  On a CPU image it walks the
 same plan with :func:`~repro_torch.kernels.megakernel.plan.exec_plan_ref`.
-``launches`` counts kernel launches, and nothing else.
+``launches`` counts kernel launches, and nothing else.  A streaming
+launch counts the rows it copies from the caller's image into the
+output in ``megakernel.passthrough_rows`` (:mod:`repro_torch.obs`).
 """
 
 from __future__ import annotations
@@ -16,9 +18,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.compile.megakernel import (MegaLowering, N_CONST_ROWS,
-                                            ONE_ROW)
-from repro_torch.core import bitplanes as bp
+from repro_torch import obs
+from repro_torch.compile.megakernel import MegaLowering, N_CONST_ROWS
 from repro_torch.kernels import launch
 from repro_torch.kernels.megakernel.plan import (exec_plan_ref, plan_for,
                                                  plan_launch, tables_for)
@@ -26,7 +27,7 @@ from repro_torch.kernels.megakernel.plan import (exec_plan_ref, plan_for,
 #: Kernel launches made by this module since the count was last zeroed.
 launches = 0
 
-_ARGS = ([launch.VOID_P] * 6 + [launch.I32] * 2 + [launch.I64]
+_ARGS = ([launch.VOID_P] * 7 + [launch.I32] * 4 + [launch.I64]
          + [launch.I32] * 10 + [launch.VOID_P])
 
 
@@ -66,29 +67,32 @@ def run_lowering(lowering: MegaLowering, state: torch.Tensor, *,
     tables = tables_for(lowering, state.device)
     lp = plan_launch(plan, rows, words, regime=regime)
     if lp.regime == "resident":
-        out = torch.empty_like(state)
-        src, result = state, out
+        out = result = torch.empty_like(state)
+        ops = tables.operands
     else:
-        image = torch.empty((rows + N_CONST_ROWS, words), dtype=torch.int32,
-                            device=state.device)
-        image[:N_CONST_ROWS] = 0
-        image[ONE_ROW] = bp.ONES
-        image[N_CONST_ROWS:] = state
-        src, result, out = None, image, image[N_CONST_ROWS:]
+        # The kernel reads `state` in place and writes only `result`: it
+        # makes the constant rows and copies the rows no kept slot writes
+        # (the plan's pass-through rows, then the rows past the
+        # lowering's), so nothing needs filling or copying here.
+        result = torch.empty((rows + N_CONST_ROWS, words),
+                             dtype=torch.int32, device=state.device)
+        out = result[N_CONST_ROWS:]
+        ops = tables.stream_operands
+        obs.count("megakernel.passthrough_rows",
+                  len(plan.passthrough) + rows - plan.n_rows)
     # Four columns an item (16-byte accesses) where the layout allows.
     vec = (words % 4 == 0 and lp.strip % 4 == 0
-           and all(t.data_ptr() % 16 == 0
-                   for t in (src, result) if t is not None))
+           and state.data_ptr() % 16 == 0 and result.data_ptr() % 16 == 0)
     # The stage follows the image strip and the held votes, 16-byte
     # aligned (plan.py, _smem).
     stage_levels, stage_slots, _ = plan.stage
     stage = (lp.smem_bytes - plan.stage_bytes) // 4
     fn = launch.kernel("megakernel", "megakernel_launch", _ARGS)
-    launch.run(fn, "megakernel", state.device,
-               src.data_ptr() if src is not None else None,
+    launch.run(fn, "megakernel", state.device, state.data_ptr(),
                result.data_ptr(), tables.chunks.data_ptr(),
                tables.levels.data_ptr(), tables.slots.data_ptr(),
-               tables.operands.data_ptr(), len(plan.chunks),
+               ops.data_ptr(), tables.passthrough.data_ptr(),
+               len(plan.chunks), len(plan.passthrough), plan.n_rows,
                rows + N_CONST_ROWS, words, plan.max_arity,
                int(lp.regime == "resident"), lp.strip, int(vec),
                lp.smem_bytes, stage, stage_levels, stage_slots, lp.blocks,

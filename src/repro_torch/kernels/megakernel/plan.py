@@ -26,7 +26,15 @@ left as they are (their digests stay the reference's):
   read by another kept slot of its level is a hazard slot: its vote must
   wait until every read of the level is done.  Every other slot may
   write straight into the image.  Within a level the plan lists the
-  plain slots first, then the hazard slots.
+  plain slots first, then the hazard slots;
+* **each operand's source is marked.**  The streaming kernel reads the
+  caller's image in place and writes only an output image.  An operand
+  reads the caller's image when its row is a program row that no kept
+  slot writes before its level (the first write may come at that level:
+  every read of a level sees the level-entry value); the constant rows,
+  and program rows written at an earlier level, are read from the
+  output.  The program rows no kept slot writes are the pass-through
+  rows, which the kernel copies into the output.
 
 The arrays are CSR: ``level_ptr`` indexes slots, ``op_ptr`` indexes
 operands.  A lowering's tables do not change after it is made, so what
@@ -65,7 +73,11 @@ class ExecPlan:
     Level ``l`` owns slots ``level_ptr[l]:level_ptr[l + 1]``, of which
     the last ``n_hazard[l]`` are hazard slots; slot ``s`` reads the
     augmented rows ``operands[op_ptr[s]:op_ptr[s + 1]]`` and writes row
-    ``dst[s]``, complemented where ``inv[s]`` is 1.
+    ``dst[s]``, complemented where ``inv[s]`` is 1.  Operand ``i`` reads
+    the caller's image where ``reads_input[i]`` is 1 (program row
+    ``operands[i] - N_CONST_ROWS``), else the output image; the program
+    rows ``passthrough`` (below ``n_rows``, the lowering's) are written
+    by no kept slot.
     """
 
     level_ptr: np.ndarray   # (n_levels + 1,) int32
@@ -74,6 +86,9 @@ class ExecPlan:
     operands: np.ndarray    # (n_operands,) int32
     dst: np.ndarray         # (n_slots,) int32
     inv: np.ndarray         # (n_slots,) int32, 0 or 1
+    reads_input: np.ndarray  # (n_operands,) int32, 0 or 1
+    passthrough: np.ndarray  # (n_passthrough,) int32 program rows
+    n_rows: int
     #: (min, max) row of the lowering's ``src`` and ``dst`` tables, padding
     #: included, so a run validates them without reading the tables.
     table_rows: dict
@@ -118,6 +133,15 @@ class ExecPlan:
         record a slot, as ``csrc/megakernel.cu`` reads it."""
         return np.stack([self.op_ptr[:-1], self.arity, self.dst, self.inv],
                         axis=1).astype(np.int32).reshape(-1, 4)
+
+    @functools.cached_property
+    def stream_operands(self) -> np.ndarray:
+        """(n_operands,) int32, the streaming kernel's operand list: the
+        augmented row of an operand read from the output, ``~r`` (below
+        0) for program row ``r`` of the caller's image."""
+        return np.where(self.reads_input == 1,
+                        ~(self.operands - N_CONST_ROWS),
+                        self.operands).astype(np.int32)
 
     def level_records(self) -> np.ndarray:
         """(n_levels, 4) int32 ``[slot_begin, n_plain, n_hazard, 0]``."""
@@ -185,7 +209,8 @@ def build_plan(lowering: MegaLowering) -> ExecPlan:
     live = np.ones(dst.shape, bool) if trash_read else dst != TRASH_ROW
 
     level_ptr, n_hazard, op_ptr = [0], [], [0]
-    operands, dsts, invs = [], [], []
+    operands, dsts, invs, from_input = [], [], [], []
+    written = set()                     # rows kept slots wrote so far
     for li in range(lowering.n_levels):
         cand = np.flatnonzero(live[li])
         if not cand.size:
@@ -214,9 +239,12 @@ def build_plan(lowering: MegaLowering) -> ExecPlan:
                  + [w for w in kept if w in hazard])
         for w in order:
             operands.extend(reads[w])
+            from_input.extend(int(r >= N_CONST_ROWS and r not in written)
+                              for r in reads[w])
             op_ptr.append(len(operands))
             dsts.append(int(dst[li, w]))
             invs.append(1 if inv[li, w] else 0)
+        written.update(dsts[level_ptr[-1]:])
         level_ptr.append(len(dsts))
         n_hazard.append(len(hazard))
 
@@ -226,6 +254,10 @@ def build_plan(lowering: MegaLowering) -> ExecPlan:
     return ExecPlan(level_ptr=i32(level_ptr), n_hazard=i32(n_hazard),
                     op_ptr=i32(op_ptr), operands=i32(operands),
                     dst=i32(dsts), inv=i32(invs),
+                    reads_input=i32(from_input),
+                    passthrough=i32([r for r in range(lowering.n_rows)
+                                     if r + N_CONST_ROWS not in written]),
+                    n_rows=int(lowering.n_rows),
                     table_rows={name: (int(t.min()), int(t.max()))
                                 for name, t in (("src", src), ("dst", dst))})
 
@@ -239,6 +271,11 @@ class DeviceTables:
     levels: torch.Tensor     # (n_levels, 4) int32
     slots: torch.Tensor      # (n_slots, 4) int32
     operands: torch.Tensor   # (n_operands,) int32
+    #: The streaming regime's operand list (:attr:`ExecPlan.
+    #: stream_operands`) and pass-through rows; the resident kernel reads
+    #: only the four arrays above.
+    stream_operands: torch.Tensor   # (n_operands,) int32
+    passthrough: torch.Tensor       # (n_passthrough,) int32
 
 
 #: Lowering -> (its plan, {device: the plan's arrays there}).  Weak keys:
@@ -276,25 +313,39 @@ def tables_for(lowering: MegaLowering, device) -> DeviceTables:
                                        device=device).contiguous()
             tables = on_device[device] = DeviceTables(
                 put(plan.chunks), put(plan.level_records()),
-                put(plan.slot_records()), put(plan.operands))
+                put(plan.slot_records()), put(plan.operands),
+                put(plan.stream_operands), put(plan.passthrough))
         return tables
 
 
 def exec_plan_ref(plan: ExecPlan, state: torch.Tensor) -> torch.Tensor:
     """Walk ``plan`` on a (rows, words) int32 image, in plain PyTorch.
 
-    Per level, the plain slots' votes are computed and written first,
-    then the hazard slots' votes are computed from that image and
-    written: exact only because no plain slot's destination is read in
-    its level, the guarantee the CUDA kernel relies on too.  Votes are
-    batched by arity (word-parallel majority).  Returns the program
-    rows of the final image; the caller's tensor is not written.
+    Two images, as in the streaming kernel: operands marked in
+    ``plan.reads_input`` are read from ``state``, which is never
+    written, every other operand from the output image, which every
+    vote writes.  Before the first level the output holds the constant
+    rows and the rows no kept slot writes (``plan.passthrough`` and the
+    program rows from ``plan.n_rows`` on); its other rows hold the
+    complement of the input, so that a read of one before its first
+    write cannot pass unseen.  Per level, the plain slots' votes are
+    computed and written first, then the hazard slots' votes are
+    computed from that image and written: exact only because no plain
+    slot's destination is read in its level, the guarantee the CUDA
+    kernel relies on too.  Votes are batched by arity (word-parallel
+    majority).  Returns the program rows of the output.
     """
     rows, words = state.shape
-    aug = state.new_zeros((rows + N_CONST_ROWS, words))
-    aug[ONE_ROW] = bp.ONES
-    aug[N_CONST_ROWS:] = state
-    arity = plan.arity
+    dev = state.device
+    out = state.new_empty((rows + N_CONST_ROWS, words))
+    out[:N_CONST_ROWS] = 0
+    out[ONE_ROW] = bp.ONES
+    out[N_CONST_ROWS:] = ~state
+    kept = torch.as_tensor(np.concatenate(
+        [plan.passthrough, np.arange(plan.n_rows, rows)]).astype(np.int64),
+        device=dev)
+    out[N_CONST_ROWS + kept] = state[kept]
+    arity, entries = plan.arity, plan.stream_operands
     for lo, hi, h in zip(plan.level_ptr[:-1].tolist(),
                          plan.level_ptr[1:].tolist(), plan.n_hazard.tolist()):
         for first, last in ((lo, hi - h), (hi - h, hi)):
@@ -302,20 +353,22 @@ def exec_plan_ref(plan: ExecPlan, state: torch.Tensor) -> torch.Tensor:
             for k in np.unique(arity[first:last]).tolist():
                 slots = first + np.flatnonzero(arity[first:last] == k)
                 if k == 0:
-                    votes = aug.new_zeros((len(slots), words))
+                    votes = out.new_zeros((len(slots), words))
                 else:
-                    idx = plan.operands[plan.op_ptr[slots][:, None]
-                                        + np.arange(k)]
-                    votes = bp.majority_words(
-                        aug[torch.as_tensor(idx, device=aug.device)], axis=1)
+                    e = torch.as_tensor(
+                        entries[plan.op_ptr[slots][:, None] + np.arange(k)],
+                        dtype=torch.int64, device=dev)
+                    from_input = e < 0
+                    ops = out[e.clamp(min=0)]
+                    ops[from_input] = state[~e[from_input]]
+                    votes = bp.majority_words(ops, axis=1)
                 flip = torch.as_tensor(plan.inv[slots].astype(bool),
-                                       device=aug.device)
+                                       device=dev)
                 votes = torch.where(flip[:, None], ~votes, votes)
                 writes.append((plan.dst[slots], votes))
             for d, votes in writes:
-                aug[torch.as_tensor(d, dtype=torch.int64,
-                                    device=aug.device)] = votes
-    return aug[N_CONST_ROWS:]
+                out[torch.as_tensor(d, dtype=torch.int64, device=dev)] = votes
+    return out[N_CONST_ROWS:]
 
 
 # ------------------------------------------------------------- launch plan
@@ -409,6 +462,7 @@ def plan_launch(plan: ExecPlan, rows: int, words: int, *,
             f"image with {plan.max_hazard} hazard votes exceed "
             f"{SMEM_LIMIT}")
     smem = _smem(plan, regime, rows_aug, strip)
+    # csrc/megakernel.cu compiles the streaming kernel for 128 threads.
     threads = 256 if regime == "resident" else 128
     blocks = max(1, min(-(-words // strip), 2**31 - 1))
     return LaunchPlan(regime=regime, strip=int(strip), threads=int(threads),

@@ -20,10 +20,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import interop
+from _mega_tables import HAND
+from repro_torch import interop, obs
 from repro_torch.backends import ExecutionContext, get_backend
 from repro_torch.compile import build_schedule, lower_schedule
 from repro_torch.core import bitplanes as bp
+from repro_torch.kernels import launch
 from repro_torch.kernels.bitplanes import ops as bitplanes_ops
 from repro_torch.kernels.bitserial import ops as bitserial_ops
 from repro_torch.kernels.majx import ops as majx_ops
@@ -247,6 +249,82 @@ def test_megakernel_either_side_of_the_shared_memory_limit(cuda_device,
         with pytest.raises(ValueError, match="shared memory"):
             mega_ops.run_lowering(low, state, regime="resident")
         assert mega_ops.launches == before
+
+
+def _add32_lowering():
+    with open(os.path.join(GOLDEN_DIR, "add32.json")) as f:
+        doc = json.load(f)
+    return lower_schedule(build_schedule(interop.program_from_json(
+        json.dumps(doc["ops"]))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,words,offset,vec", [
+    ("add32", 2048, 0, 1),
+    ("add32", 2046, 0, 0),                  # words % 4 != 0
+    ("add32", 2048, 1, 0),                  # state 4 bytes off 16
+    ("trash_read_after_padded_level", 2048, 0, 1),
+    ("constant_row_written", 2048, 0, 1),
+    ("constant_row_written", 333, 3, 0),
+])
+def test_streaming_megakernel_reads_the_callers_image_in_place(
+        cuda_device, monkeypatch, name, words, offset, vec):
+    """The streaming launch reads the caller's image in place and writes
+    only its output: the caller's tensor is bit-identical after it, three
+    rows past the lowering's ride along, the result equals the padded
+    walk, on the 16-byte path and the one-word path (a word count or a
+    storage offset that breaks 16-byte alignment), on add32, a lowering
+    that reads the trash row and one that writes a constant row.  The
+    kernel copies the plan's pass-through rows and the three past it."""
+    from repro_torch.kernels.megakernel.plan import plan_for
+
+    low = _add32_lowering() if name == "add32" else HAND[name]
+    rows = low.n_rows + 3
+    buf = _words(words + offset, rows * words + offset, device=cuda_device)
+    state = buf[offset:].view(rows, words)
+    assert (state.data_ptr() % 16 == 0) == (offset == 0)
+    want = schedule_exec_ref(low, state)
+    before = state.clone()
+    launched, run = [], launch.run
+
+    def record(f, what, device, *args):
+        launched.append(args)
+        run(f, what, device, *args)
+
+    monkeypatch.setattr(launch, "run", record)
+    with obs.recording() as rec:
+        got = mega_ops.run_lowering(low, state, regime="streaming")
+    torch.cuda.synchronize()
+    assert torch.equal(state, before)
+    assert torch.equal(got, want)
+    assert torch.equal(got[low.n_rows:], state[low.n_rows:])
+    (args,) = launched
+    assert (args[13], args[15]) == (0, vec)       # streaming; 16-byte path
+    assert rec.counters["megakernel.passthrough_rows"] == \
+        len(plan_for(low).passthrough) + 3
+
+
+@pytest.mark.cuda
+def test_streaming_megakernel_is_one_device_operation(cuda_device):
+    """Under the profiler one streaming run is one device operation, the
+    kernel: no copy of the image and no fill beside it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    low = _add32_lowering()
+    state = _words(31, low.n_rows, 2**16, device=cuda_device)
+    mega_ops.run_lowering(low, state, regime="streaming")  # tables, build
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = mega_ops.run_lowering(low, state, regime="streaming")
+        torch.cuda.synchronize()
+    ops = [(e.key, e.count) for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    assert len(ops) == 1 and ops[0][1] == 1, ops
+    assert "megakernel_streaming" in ops[0][0], ops
+    assert torch.equal(got, schedule_exec_ref(low, state))
 
 
 def _rand_program(rng, rows: int = 20, n_ops: int = 12) -> Program:

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from _mega_tables import HAND, R
 from _proptest import rand_u32
 from repro.backends import ExecutionContext as RefContext
 from repro.backends import get_backend as ref_get_backend
@@ -35,9 +36,9 @@ from repro.session import DramSession as RefSession
 from repro_torch import interop
 from repro_torch.backends import ExecutionContext, get_backend
 from repro_torch.compile import (build_schedule, compile_elementwise,
-                                 lower_schedule)
-from repro_torch.compile.megakernel import (MegaLowering, ONE_ROW,
-                                            TRASH_ROW, ZERO_ROW)
+                                 compile_op, lower_schedule)
+from repro_torch.compile.megakernel import (MegaLowering, N_CONST_ROWS,
+                                            TRASH_ROW)
 from repro_torch.core import bitplanes as bp
 from repro_torch.kernels.megakernel import ops as mega_ops
 from repro_torch.kernels.megakernel.plan import (STAGE_LEVELS, STAGE_OPS,
@@ -47,6 +48,7 @@ from repro_torch.kernels.megakernel.plan import (STAGE_LEVELS, STAGE_OPS,
 from repro_torch.kernels.megakernel.ref import schedule_exec_ref
 from repro_torch.session import CompileCache, DramSession
 from test_compile_differential import rand_program
+from test_torch_cuda import _rand_program
 
 CPU = ExecutionContext(device="cpu", ideal=True)
 REF = RefContext(ideal=True)
@@ -191,74 +193,6 @@ def test_plan_walk_on_arith_lowerings(op, tier):
 # ------------------------------------------------------ hand-made tables
 
 
-def _low(levels, n_rows):
-    """A MegaLowering from ``[(src rows, dst, inv), ...]`` per level (all
-    of one arity), padded with inert slots: ZERO_ROW operands, TRASH_ROW
-    destination."""
-    w = max(len(lv) for lv in levels)
-    x = len(levels[0][0][0])
-    src = np.full((len(levels), w, x), ZERO_ROW, np.int32)
-    dst = np.full((len(levels), w), TRASH_ROW, np.int32)
-    inv = np.zeros((len(levels), w), np.uint32)
-    for li, lv in enumerate(levels):
-        for si, (s, d, f) in enumerate(lv):
-            assert len(s) == x
-            src[li, si] = s
-            dst[li, si] = d
-            inv[li, si] = f
-    meta = tuple((len(lv), 0, 0, 0) for lv in levels)
-    return MegaLowering(src=src, dst=dst, inv=inv, n_rows=n_rows,
-                        level_meta=meta)
-
-
-R = 3       # first program row in the augmented image
-Z, O = ZERO_ROW, ONE_ROW
-
-HAND = {
-    # An inert-looking slot writes ONES into the trash row; the next
-    # level reads it, a level of padding zeroes it, and a later level
-    # reads it again: every trash writer must be kept.
-    "trash_read_after_padded_level": _low(
-        [[((R + 1, R + 2, R + 3), R, 0), ((Z, Z, Z), TRASH_ROW, 1)],
-         [((TRASH_ROW, R, R + 1), R + 4, 0)],
-         [],
-         [((TRASH_ROW, R + 4, R + 1), R + 5, 0)]], 6),
-    # Unpaired constants stay, matched (0, 1) pairs go.
-    "unpaired_constants": _low(
-        [[((R, Z, Z, Z, Z), R + 1, 0),
-          ((R, Z, Z, O, R + 4), R + 2, 0),
-          ((R, O, O, O, Z), R + 3, 1),
-          ((Z, O, Z, O, R), R + 5, 0)]], 6),
-    # A level of padding only, between two real levels.
-    "all_padding_level": _low(
-        [[((R, R + 1, R + 2), R + 3, 0)],
-         [],
-         [((R + 3, O, Z), R + 4, 1)]], 6),
-    # A swap inside one level: both slots are hazard slots.
-    "swap_in_one_level": _low(
-        [[((R,), R + 1, 0), ((R + 1,), R, 0), ((R + 2,), R + 3, 1)]], 5),
-    # A rotation of three rows, and a slot that reads its own
-    # destination (not a hazard by itself).
-    "rotation_and_self_read": _low(
-        [[((R + 1, Z, O), R, 0), ((R + 2, Z, O), R + 1, 0),
-          ((R, Z, O), R + 2, 1), ((R + 3, R + 4, R + 5), R + 3, 0)]], 6),
-    # A slot writes ones into the zero row; a later (0, 1) pair is then
-    # no constant pair and must be kept.
-    "constant_row_written": _low(
-        [[((O, O, O), Z, 0)],
-         [((R, Z, O), R + 1, 0)]], 3),
-    # Two slots of one level write the same row: the last one's vote
-    # stands, and the slot that reads that row makes it a hazard.
-    "two_writers_one_level": _low(
-        [[((R, R + 1, R + 2), R + 3, 0), ((R + 1, Z, O), R + 3, 1),
-          ((R + 3, Z, O), R + 4, 0)]], 5),
-    # An even arity: strict majority, 2 of 4 is not enough.
-    "even_arity": _low(
-        [[((R, R + 1, R + 2, R + 3), R + 4, 0),
-          ((R, R + 1, Z, O), R + 5, 0)]], 6),
-}
-
-
 @pytest.mark.parametrize("name", sorted(HAND))
 def test_plan_walk_on_hand_made_tables(name):
     low = HAND[name]
@@ -322,6 +256,116 @@ def test_hand_made_plans_apply_each_rule():
     assert p.hazard_mask().tolist() == [False, True]
     p = plan("even_arity")
     assert p.arity.tolist() == [4, 2] and p.thresh.tolist() == [3, 2]
+
+
+# ------------------------------------------- the streaming regime's images
+
+
+def _source_bit_cases():
+    """The golden add32, mul at MAJ5 compiled once for any operands, and
+    the 8 hazard programs of the card's regime tests."""
+    with open(os.path.join(GOLDEN_DIR, "add32.json")) as f:
+        cases = {"add32": interop.program_from_json(
+            json.dumps(json.load(f)["ops"]))}
+    cases["compile_op-mul-5"] = compile_op("mul", 5, 32).program
+    rng = np.random.default_rng(0x4A2)
+    for i in range(8):
+        cases[f"hazard{i}"] = _rand_program(rng)
+    return cases
+
+
+SOURCE_BIT_CASES = _source_bit_cases()
+
+
+@pytest.mark.parametrize("name", sorted(SOURCE_BIT_CASES))
+def test_source_bits_follow_the_first_kept_write(name):
+    """An operand reads the caller's image exactly when its row is a
+    program row whose first write by a kept slot comes at the operand's
+    level or later, or never (brute force over the plan's levels); the
+    streaming operand list encodes that as ``~program row``."""
+    prog = SOURCE_BIT_CASES[name]
+    low = lower_schedule(build_schedule(prog))
+    plan = plan_for(low)
+    first = {}
+    for li in range(plan.n_levels):
+        for d in plan.dst[plan.level_ptr[li]:plan.level_ptr[li + 1]]:
+            first.setdefault(int(d), li)
+    want = []
+    for li in range(plan.n_levels):
+        for s in range(plan.level_ptr[li], plan.level_ptr[li + 1]):
+            for r in plan.operands[plan.op_ptr[s]:plan.op_ptr[s + 1]]:
+                want.append(int(r >= N_CONST_ROWS
+                                and first.get(int(r), li) >= li))
+    assert plan.reads_input.tolist() == want
+    assert plan.stream_operands.tolist() == [
+        ~(r - N_CONST_ROWS) if w else r
+        for r, w in zip(plan.operands.tolist(), want)]
+    if name.startswith("hazard") and low.n_levels:
+        # Two rows past the lowering's ride along through the walk.
+        _check_plan(low, rand_u32(np.random.default_rng(len(name)),
+                                  low.n_rows + 2, 7))
+
+
+def test_hazard_programs_read_both_images():
+    """The hazard programs read rows of both images, and some read a row
+    at its own first write's level: the cases the rule must get right."""
+    both = at_first_write = 0
+    for name, prog in SOURCE_BIT_CASES.items():
+        if not name.startswith("hazard"):
+            continue
+        plan = build_plan(lower_schedule(build_schedule(prog)))
+        both += len(set(plan.reads_input.tolist())) == 2
+        written = set()
+        for li in range(plan.n_levels):
+            lo, hi = plan.level_ptr[li], plan.level_ptr[li + 1]
+            dsts = set(plan.dst[lo:hi].tolist()) - written
+            ops = plan.operands[plan.op_ptr[lo]:plan.op_ptr[hi]]
+            at_first_write += bool(dsts & set(ops.tolist()))
+            written |= dsts
+    assert both >= 4 and at_first_write >= 2
+
+
+@pytest.mark.parametrize("op,n_pass", [("mul", 65), ("div", 66)])
+def test_passthrough_rows_are_the_rows_no_kept_slot_writes(op, n_pass):
+    """On the ops compiled once for any operands (MAJ5): the pass-through
+    rows are the program rows the padded tables never name as a
+    destination, which are the operands' planes and the constant rows."""
+    co = compile_op(op, 5, 32)
+    low = lower_schedule(build_schedule(co.program))
+    plan = plan_for(low)
+    named = set((low.dst[low.dst >= N_CONST_ROWS] - N_CONST_ROWS).tolist())
+    assert plan.passthrough.tolist() == [r for r in range(low.n_rows)
+                                         if r not in named]
+    assert set(plan.passthrough.tolist()) == {*co.a_rows, *co.b_rows,
+                                              *co.consts}
+    assert len(plan.passthrough) == n_pass and plan.n_rows == low.n_rows
+
+
+@pytest.mark.parametrize("name,reads_input,passthrough", [
+    # Every trash writer is kept: ZERO_ROW operands in four levels.
+    ("trash_read_after_padded_level",
+     [1, 1, 1, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0],
+     [1, 2, 3]),
+    ("constant_row_written", [0, 0, 0, 1, 0, 0], [0, 2]),
+])
+def test_plan_walk_carries_rows_past_the_lowering(name, reads_input,
+                                                  passthrough):
+    """A lowering that reads the trash row and one that writes a constant
+    row: constant rows are always read from the output, the walk equals
+    the padded walk with four rows past the lowering's, those rows come
+    out as they went in, and the caller's tensor is not written."""
+    low = HAND[name]
+    plan = build_plan(low)
+    assert plan.reads_input.tolist() == reads_input
+    assert plan.passthrough.tolist() == passthrough
+    state = _t(rand_u32(np.random.default_rng(len(name)), low.n_rows + 4,
+                        6))
+    before = state.clone()
+    got = exec_plan_ref(plan, state)
+    assert torch.equal(state, before)
+    assert torch.equal(got, schedule_exec_ref(low, state))
+    assert torch.equal(got[low.n_rows:], state[low.n_rows:])
+    assert torch.equal(mega_ops.run_lowering(low, state), got)
 
 
 # ----------------------------------------------------- the launch planner
@@ -410,7 +454,9 @@ def test_a_lowering_derives_one_plan_and_one_table_set_a_device():
     for got, want in ((tables.chunks, plan.chunks),
                       (tables.levels, plan.level_records()),
                       (tables.slots, plan.slot_records()),
-                      (tables.operands, plan.operands)):
+                      (tables.operands, plan.operands),
+                      (tables.stream_operands, plan.stream_operands),
+                      (tables.passthrough, plan.passthrough)):
         assert got.dtype == torch.int32 and got.is_contiguous()
         assert torch.equal(got, torch.as_tensor(want, dtype=torch.int32))
     # An equal lowering is another object: it derives its own.
